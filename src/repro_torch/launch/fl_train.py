@@ -1,0 +1,332 @@
+"""Port of ``src/repro/launch/fl_train.py`` (the sync round; the
+event-driven, sweep and multi-tenant runners arrive with later slices).
+
+Cross-silo FL driver — the paper's end-to-end system, live.
+
+Server + N silo clients training a real model (default: the paper's Small
+tier, ResNet56) over a chosen backend and topology; payloads really move
+through the backend; time is simulated-clock seconds. Runs on the CUDA
+card unless ``--device`` names another device:
+
+    PYTHONPATH=src python -m repro_torch.launch.fl_train --backend grpc+s3 \\
+        --environment geo_distributed --rounds 3 --tier small
+
+The experiment is one declarative ``Scenario`` (repro_torch/scenario/):
+``--scenario FILE`` loads one, and every other flag is an override on
+the resolved spec.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from repro_torch import _tree
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import FLConfig
+from repro_torch.configs.paper_tiers import build_tier_model
+from repro_torch.core import TensorPayload
+from repro_torch.core.backends import BACKEND_NAMES
+from repro_torch.data import make_silo_datasets
+from repro_torch.fl import FLClient, FLServer
+from repro_torch.fl.fault import FaultPlan, apply_stragglers
+from repro_torch.scenario import (TOPOLOGY_PRESETS, Scenario, ScenarioError,
+                                  build_runtime, with_overrides)
+
+LEARNING_RATE = 0.05
+
+
+def make_train_fn(model):
+    """One SGD step: autograd over the tree's leaves, then
+    ``p - lr * g``. Returns (new_params, loss tensor)."""
+    def train_fn(params, batch):
+        leaves, treedef = _tree.flatten(params)
+        leaves = [l.detach().requires_grad_(True) for l in leaves]
+        loss, _ = model.loss(_tree.unflatten(treedef, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            new = [p - LEARNING_RATE * g for p, g in zip(leaves, grads)]
+        return _tree.unflatten(treedef, new), loss.detach()
+    return train_fn
+
+
+def build_deployment(fl_cfg: FLConfig, *, tier: str = "small",
+                     reduced: bool = True, local_steps: int = 4,
+                     fail_rate: float = 0.0, scenario: Scenario = None,
+                     device=None):
+    """FLConfig/Scenario -> live deployment, through the scenario runtime
+    (the same path ``--scenario`` files take). ``device`` defaults to
+    CUDA and raises when no card is present.
+
+    Passing *both* ``fl_cfg`` and ``scenario`` is only legal when they
+    agree: the scenario's flat projection (``Scenario.fl_config()``)
+    must equal ``fl_cfg`` field-for-field, otherwise we raise instead of
+    silently preferring one."""
+    device = resolve_device(device)
+    if scenario is not None:
+        back = scenario.fl_config()
+        if back != fl_cfg:
+            diffs = [f"{f.name}: fl_cfg={getattr(fl_cfg, f.name)!r} "
+                     f"scenario={getattr(back, f.name)!r}"
+                     for f in dataclasses.fields(FLConfig)
+                     if getattr(back, f.name) != getattr(fl_cfg, f.name)]
+            raise ValueError(
+                "build_deployment got both fl_cfg and scenario but they "
+                "disagree (scenario.fl_config() != fl_cfg): "
+                + "; ".join(diffs))
+        sc = scenario
+    else:
+        sc = fl_cfg.to_scenario(tier=tier, local_steps=local_steps,
+                                store_fail_rate=fail_rate)
+    if fl_cfg.mode != "sync":
+        raise NotImplementedError(
+            f"mode '{fl_cfg.mode}': the event-driven runtime is not ported "
+            f"to repro_torch yet (sync only)")
+    rt = build_runtime(sc)
+    env, store = rt.env, rt.store
+
+    if reduced:
+        # reduced same-family model so CPU rounds take seconds
+        from repro_torch.models.vision import ResNet, ResNetConfig
+        model = ResNet(ResNetConfig(blocks_per_stage=2, num_classes=8,
+                                    image_size=16), device=device)
+    else:
+        model, _ = build_tier_model(tier, device=device)
+    params = model.init(torch.Generator().manual_seed(fl_cfg.seed))
+
+    silos = make_silo_datasets(fl_cfg.num_clients, kind="image",
+                               examples_per_silo=64, num_classes=8,
+                               image_size=16, seed=fl_cfg.seed)
+    train_fn = make_train_fn(model)
+    clients = []
+    for i, host in enumerate(env.clients):
+        # sync rounds aggregate the exact trees, so the payload codec
+        # stays off; a wire codec rides every backend (Runtime applies it)
+        cb = rt.make_backend(host.host_id, compression="none")
+        clients.append(FLClient(host.host_id, cb, dataset=silos[i],
+                                train_fn=train_fn, batch_size=16,
+                                seed=fl_cfg.seed + i, device=device))
+    server_backend = rt.make_backend("server", compression="none")
+    server = FLServer(server_backend, clients,
+                      quorum_fraction=fl_cfg.quorum_fraction,
+                      round_deadline_s=fl_cfg.round_deadline_s,
+                      local_steps=local_steps)
+    server.model = model
+    return server, params, env, store
+
+
+def _parser() -> argparse.ArgumentParser:
+    """Every flag defaults to None: unset flags leave the loaded scenario
+    untouched, set ones override it (tests assert this precedence)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scenario", default=None,
+                    help="scenario JSON (see examples/scenarios/); other "
+                         "flags become overrides on the loaded spec")
+    ap.add_argument("--sweep", default=None,
+                    help="sweep JSON (base scenario + axes, see "
+                         "examples/scenarios/sweep_decision_guide.json): "
+                         "run every cell through the generic scenario "
+                         "runner instead of one training run (equivalent "
+                         "to `python -m repro.sweep FILE`; not yet "
+                         "ported to repro_torch)")
+    ap.add_argument("--multi", default=None,
+                    help="multi-tenant scenario JSON (see examples/"
+                         "scenarios/multitenant_pair.json): co-schedule "
+                         "every job on one shared fabric + clock under "
+                         "the spec's admission policy (not yet ported "
+                         "to repro_torch)")
+    ap.add_argument("--blackout-trace", default=None,
+                    help="JSONL link-outage replay (one {src,dst,t0,t1,"
+                         "symmetric} object per line) appended to the "
+                         "scenario's inline faults.blackouts")
+    ap.add_argument("--sweep-fresh", action="store_true",
+                    help="with --sweep: ignore the run store, re-run "
+                         "every cell")
+    ap.add_argument("--sweep-out-dir", default=None,
+                    help="with --sweep: run-store/report root (default: "
+                         "the repo's benchmarks/out when importable, "
+                         "else ./benchmarks/out)")
+    ap.add_argument("--backend", default=None, choices=BACKEND_NAMES)
+    ap.add_argument("--environment", default=None,
+                    choices=list(TOPOLOGY_PRESETS),
+                    help="topology preset: the legacy trio or the graph "
+                         "presets star | ring | multi_hub")
+    ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--clients", type=int, default=None)
+    ap.add_argument("--local-steps", type=int, default=None)
+    ap.add_argument("--quorum", type=float, default=None)
+    ap.add_argument("--drop-rate", type=float, default=0.0,
+                    help="sync-mode per-round client drop rate (FaultPlan)")
+    ap.add_argument("--tier", default=None)
+    ap.add_argument("--mode", default=None,
+                    choices=["sync", "fedbuff", "semisync", "hier",
+                             "vertical"])
+    ap.add_argument("--cut-layer", type=int, default=None,
+                    help="vertical mode: unit boundary of the bottom/top "
+                         "split (valid cuts: 1..n_units-1 of the deployed "
+                         "model)")
+    ap.add_argument("--batches-per-round", type=int, default=None,
+                    help="vertical mode: forward-activation / "
+                         "backward-gradient exchanges per party per round")
+    ap.add_argument("--activation-codec", default=None,
+                    help="vertical mode: codec on the activation/gradient "
+                         "wires, both directions (none | qsgd[:block] | "
+                         "topk[:frac])")
+    ap.add_argument("--buffer-k", type=int, default=None,
+                    help="fedbuff merge buffer (0 = num_clients // 2)")
+    ap.add_argument("--staleness-exponent", type=float, default=None)
+    ap.add_argument("--max-staleness", type=int, default=None)
+    ap.add_argument("--staleness-adaptive", action="store_true",
+                    default=None,
+                    help="FedAsync-style: scale the staleness exponent by "
+                         "each update's observed-staleness percentile")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="semisync round deadline, simulated seconds")
+    ap.add_argument("--compression", default=None,
+                    help="wire-stack compression: none | qsgd[:block] | "
+                         "topk[:frac] (payload domain: client updates in "
+                         "fedbuff/semisync, relay WAN hop in hier) | "
+                         "zlib[:level] (byte domain: every backend "
+                         "channel, all modes)")
+    ap.add_argument("--chunk-mb", type=float, default=None,
+                    help="split wires into pipelined chunks of this size "
+                         "(0 = whole-wire sends)")
+    ap.add_argument("--availability-trace", default=None,
+                    help="client churn for event-driven modes: "
+                         "'auto:MEAN_UP/MEAN_DOWN' (generated exponential "
+                         "up/down periods) or explicit "
+                         "'client0:leave@120,join@400;client3:leave@50'")
+    ap.add_argument("--trace-horizon", type=float, default=None,
+                    help="horizon (sim s) for generated availability traces")
+    ap.add_argument("--link-loss", type=float, default=None,
+                    help="per-chunk loss probability on every graph edge "
+                         "(deterministic LinkFaultModel; receivers NACK, "
+                         "senders retransmit with bounded retries)")
+    ap.add_argument("--region-quorum", type=float, default=None,
+                    help="hier mode: min live fraction for a region to "
+                         "participate in a round (below it the region is "
+                         "skipped, folded back in on rejoin)")
+    ap.add_argument("--cohort-k", type=int, default=None,
+                    help="fedbuff/semisync: seeded K-of-N cohort sampled "
+                         "per round (0 = whole fleet; K=N is bit-for-bit "
+                         "the full-fleet run)")
+    ap.add_argument("--streaming-hub", action="store_true", default=None,
+                    help="fold updates into one O(model) accumulator at "
+                         "the hub instead of buffering O(clients) records")
+    ap.add_argument("--relay-depth", type=int, default=None,
+                    help="hier mode: relay-tree levels (1 = the "
+                         "single-tier relay)")
+    ap.add_argument("--device", default=None,
+                    help="torch device to train and aggregate on "
+                         "(default: cuda; a missing card is an error)")
+    return ap
+
+
+def resolve_scenario(args, ap: argparse.ArgumentParser) -> Scenario:
+    """--scenario file (or the default spec) + flag overrides -> one
+    validated Scenario. Precedence: explicit flag > loaded spec > default."""
+    try:
+        base = (Scenario.load(args.scenario) if args.scenario
+                else Scenario(name="fl_train"))
+        sc = with_overrides(base, {
+            "channel.backend": args.backend,
+            "channel.compression": args.compression,
+            "channel.chunk_mb": args.chunk_mb,
+            "topology.kind": args.environment,
+            "topology.num_clients": args.clients,
+            "fleet.tier": args.tier,
+            "fleet.local_steps": args.local_steps,
+            "strategy.mode": args.mode,
+            "strategy.rounds": args.rounds,
+            "strategy.buffer_k": args.buffer_k,
+            "strategy.staleness_exponent": args.staleness_exponent,
+            "strategy.max_staleness": args.max_staleness,
+            "strategy.staleness_adaptive": args.staleness_adaptive,
+            "strategy.quorum_fraction": args.quorum,
+            "strategy.round_deadline_s": args.deadline,
+            "split.cut_layer": args.cut_layer,
+            "split.batches_per_round": args.batches_per_round,
+            "split.activation_codec": args.activation_codec,
+            "faults.link_loss": args.link_loss,
+            "faults.availability_trace": args.availability_trace,
+            "faults.trace_horizon_s": args.trace_horizon,
+            "faults.blackouts_file": args.blackout_trace,
+            "strategy.region_quorum": args.region_quorum,
+            "fleet.cohort_k": args.cohort_k,
+            "strategy.streaming_hub": args.streaming_hub,
+            "topology.relay_depth": args.relay_depth,
+        })
+        # a byte-domain --compression spec is really the wire codec;
+        # split_codecs owns the rule (and rejects two different wire
+        # codecs instead of silently clobbering the spec's)
+        from repro_torch.compression.stages import split_codecs
+        payload_codec, wire = split_codecs(sc.channel.compression,
+                                           sc.channel.wire_codec)
+        if payload_codec is None and wire is not None \
+                and sc.channel.compression not in ("", "none"):
+            sc = with_overrides(sc, {
+                "channel.wire_codec": sc.channel.compression,
+                "channel.compression": "none"})
+        return sc.validate()
+    except (ScenarioError, KeyError, OSError, ValueError,
+            NotImplementedError) as e:
+        ap.error(str(e))
+
+
+def main(argv=None):
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.sweep or args.multi:
+        ap.error("--sweep / --multi: the sweep and multi-tenant runners "
+                 "are not yet ported to repro_torch")
+    sc = resolve_scenario(args, ap)
+    if sc.strategy.mode != "sync":
+        ap.error(f"--mode {sc.strategy.mode}: the event-driven runtime is "
+                 f"not yet ported to repro_torch (sync only)")
+
+    if sc.channel.backend == "grpc+s3" and sc.topology.kind == "lan":
+        print("[fl] note: paper omits grpc+s3 on LAN; switching to auto")
+        sc = with_overrides(sc, {"channel.backend": "auto"})
+
+    fl_cfg = sc.fl_config()
+    print(f"[fl] scenario '{sc.name}': topology={sc.topology.kind} "
+          f"x{sc.topology.num_clients} backend={sc.channel.backend} "
+          f"mode={sc.strategy.mode} tier={sc.fleet.tier}")
+    try:
+        server, params, env, store = build_deployment(
+            fl_cfg, tier=sc.fleet.tier, local_steps=sc.fleet.local_steps,
+            scenario=sc, device=args.device)
+    except (RuntimeError, NotImplementedError, KeyError) as e:
+        ap.error(str(e))
+    fault = FaultPlan(drop_rate=args.drop_rate, seed=1)
+
+    losses = []
+    for r in range(fl_cfg.rounds):
+        dropped, stragglers = fault.for_round(r, [c.client_id for c in
+                                                  server.clients])
+        apply_stragglers(server.clients, stragglers, fault.straggler_factor)
+        report = server.run_round(TensorPayload(params), dropped=dropped)
+        if server.global_params is not None:
+            params = server.global_params
+        losses.append(report.losses)
+        print(f"[fl] round {r}: t={report.round_time:8.2f}s sim "
+              f"loss={report.losses if report.losses else float('nan'):.4f} "
+              f"participants={report.n_participants} "
+              f"server_mem={report.peak_server_memory / 2**20:.1f}MB "
+              f"{'ABORTED(mpi)' if report.aborted else ''}")
+        srv = report.server
+        cl = report.clients
+        print(f"     server: comm={srv['communication']:.2f} wait={srv['waiting']:.2f} "
+              f"agg={srv['aggregation']:.3f} | client: comm={cl['communication']:.2f} "
+              f"train={cl['training']:.2f} ser={cl['serialization']:.2f} "
+              f"wait={cl['waiting']:.2f}")
+    ok = losses[-1] is not None and losses[0] is not None and \
+        losses[-1] < losses[0] + 1e-6
+    print(f"[fl] losses: {['%.3f' % l if l else 'n/a' for l in losses]} "
+          f"({'improving' if ok else 'check'})  s3_stats={store.stats}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
