@@ -1,34 +1,51 @@
-"""Port of ``src/repro/compression/stages.py``, limited to what the sync
-round reaches.
+"""Port of ``src/repro/compression/stages.py``: payload-level and
+wire-level codec adapters for the wire pipeline (core/channel.py).
 
-Codec adapters for the wire pipeline (core/channel.py). ``make_backend``
-and ``CompressStage`` call ``make_codec`` / ``split_codecs`` on every
-backend, and the byte-domain ``ZlibCodec`` / ``ZstdCodec`` are lossless,
-so they ride sync rounds (``--compression zlib``). The payload codecs
-(``qsgd`` int8 blocks, ``topk`` sparsification) need the quantize and
-top-k kernels; naming one raises ``NotImplementedError`` rather than
-silently sending uncompressed payloads.
-
-A codec turns one wire into a smaller one and back, *invertibly*: the
-forward pass returns an ``info`` dict carrying everything the receiver
-needs to reconstruct the original, which the Channel records on the wire
-as stage provenance. Decode is stateless, so any receiver can decode any
+A codec turns one payload (or wire) into a smaller one and back,
+*invertibly*: the forward pass returns an ``info`` dict carrying
+everything the receiver needs to reconstruct the original (tree
+structure, original byte size), which the Channel records on the wire as
+stage provenance. Error-feedback state (the QSGD residual) stays on the
+*sender*; the decode side is stateless, so any receiver can decode any
 wire.
+
+Payload codecs handle all three payload flavours:
+
+* ``TensorPayload``  -- real compression through the quantize kernels,
+  optional error feedback (the residual lives on the update's device);
+* ``VirtualPayload`` -- the byte count is scaled by the codec's wire ratio
+  (paper-scale runs: identical accounting, no memcpy);
+* ``PackedPayload``  -- already compressed: passed through untouched.
+
+The receiver dequantises on its own device (the ``device`` its Channel
+carries), through the dequantize kernel on a card. ``qsgd`` is ported;
+``topk`` raises ``NotImplementedError`` until its kernel is (slice 3).
+The byte-domain ``ZlibCodec`` / ``ZstdCodec`` are lossless and ride every
+backend.
+
+Simulated codec throughputs (``enc_bw`` / ``dec_bw``) are the
+reference's modelling constants of the simulated clock, kept verbatim so
+the clock matches the reference; they are not measurements of any card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import _tree
+from repro_torch.compression.qsgd import (QuantState, qsgd_compress,
+                                          qsgd_compress_flat_batch)
+from repro_torch.core.message import (PackedPayload, TensorPayload,
+                                      VirtualPayload)
+from repro_torch.kernels import ops
 
 GB = 1024 ** 3
 
 _LATER = ("the '{}' payload codec is not ported to repro_torch yet: it "
-          "arrives with the event-driven runtime and codec slice "
-          "(ROADMAP.md queue A, items 8-9)")
+          "arrives with the top-k kernel in slice 3 (ROADMAP.md queue A, "
+          "item 9)")
 
 
 def tree_meta(tree):
@@ -53,7 +70,10 @@ def unflatten_from_meta(vec, meta):
 
 
 class BaseCodec:
-    """``domain`` marks where in the channel the codec acts: ``payload``
+    """compress(payload, state) -> (payload', new_state, info);
+    decompress(payload', info) -> payload. ``info`` is wire provenance.
+
+    ``domain`` marks where in the channel the codec acts: ``payload``
     codecs (qsgd/topk) need tensor semantics and run before the
     serializer; ``wire`` codecs (zlib-family) are byte transforms of the
     serialized wire and run after it (channel.WireCompressStage)."""
@@ -75,6 +95,135 @@ class BaseCodec:
 
     def dec_time(self, orig_nbytes: int) -> float:
         return orig_nbytes / self.dec_bw
+
+    # -- shared plumbing -------------------------------------------------
+    def compress(self, payload, state=None
+                 ) -> Tuple[object, object, Optional[dict]]:
+        if isinstance(payload, PackedPayload):
+            return payload, state, None  # already compressed: skip stage
+        if isinstance(payload, VirtualPayload):
+            nb = int(round(payload.nbytes * self.ratio()))
+            out = VirtualPayload(nb, tag=f"{payload.tag}|{self.name}")
+            return out, state, {"codec": self.name, "virtual": True,
+                                "orig_nbytes": payload.nbytes,
+                                "orig_tag": payload.tag}
+        if isinstance(payload, TensorPayload):
+            return self._compress_tree(payload, state)
+        raise TypeError(f"{self.name}: cannot compress {type(payload)}")
+
+    def decompress(self, payload, info, *, device=None):
+        """``device``: where a real payload is reconstructed (the
+        receiving Channel's device)."""
+        if info is None:
+            return payload
+        if info.get("virtual"):
+            return VirtualPayload(info["orig_nbytes"],
+                                  tag=info.get("orig_tag", ""))
+        return self._decompress_tree(payload, info, device)
+
+    def init_state(self, payload):
+        """Fresh error-feedback state for a tensor payload, on the
+        payload's device (None = EF off or payload not a tensor)."""
+        if isinstance(payload, TensorPayload):
+            flat, _ = ops.flatten_pytree(payload.tree)
+            return QuantState(error=torch.zeros_like(flat))
+        return None
+
+    def state_matches(self, state, payload) -> bool:
+        """Does an existing residual fit this payload? (A peer stream can
+        legally carry differently-shaped messages; feedback only composes
+        across same-shaped ones.)"""
+        if state is None or not isinstance(payload, TensorPayload):
+            return False
+        elems = sum(int(np.prod(tuple(np.shape(l))))
+                    for l in _tree.leaves(payload.tree))
+        return int(state.error.numel()) == elems
+
+    # -- batched surface -------------------------------------------------
+    def encode_batch(self, payloads, states):
+        """[payload_i], [state_i] -> [(payload'_i, new_state_i, info_i)].
+
+        The base implementation is the per-message loop, so every codec
+        has the surface and ``compress`` is exactly ``encode_batch`` of
+        one: same wire bytes, same info, same state transitions."""
+        return [self.compress(p, s) for p, s in zip(payloads, states)]
+
+    def decode_batch(self, payloads, infos, *, device=None):
+        """[payload'_i], [info_i] -> [payload_i]; inverse of encode_batch
+        (stateless, like ``decompress``)."""
+        return [self.decompress(p, i, device=device)
+                for p, i in zip(payloads, infos)]
+
+
+class QsgdCodec(BaseCodec):
+    """QSGD int8 block quantisation (Alistarh et al. 2017) behind the
+    quantize kernel. Wire = int8 values + one f32 scale per block."""
+
+    name = "qsgd"
+
+    def __init__(self, block: int = 256):
+        self.block = int(block)
+
+    def signature(self) -> str:
+        return f"qsgd(b{self.block})"
+
+    def ratio(self) -> float:
+        # f32 -> int8 (1/4) plus a 4-byte scale per `block` elements
+        return 0.25 * (1.0 + 4.0 / self.block)
+
+    def _info(self, payload: TensorPayload) -> dict:
+        return {"codec": self.name, "orig_nbytes": payload.nbytes,
+                "tree_meta": tree_meta(payload.tree)}
+
+    def _compress_tree(self, payload: TensorPayload, state):
+        packed, new_state, _ = qsgd_compress(payload.tree, state,
+                                             block=self.block)
+        return PackedPayload(packed), new_state, self._info(payload)
+
+    def encode_batch(self, payloads, states):
+        """Fused override: every TensorPayload in the batch is flattened
+        into one (rows, block) device buffer and quantised by one kernel
+        launch (kernels/ops.quantize_rows_batch); per-item wire bytes, info
+        and error-feedback transitions are bit-identical to the
+        per-message path. Non-tensor payloads fall through to the scalar
+        rules in declaration order."""
+        tensor_idx = [i for i, p in enumerate(payloads)
+                      if isinstance(p, TensorPayload)]
+        tensor_set = set(tensor_idx)
+        out = [None] * len(payloads)
+        for i, (p, s) in enumerate(zip(payloads, states)):
+            if i not in tensor_set:
+                out[i] = self.compress(p, s)
+        if tensor_idx:
+            flats = [ops.flatten_pytree(payloads[i].tree)[0]
+                     for i in tensor_idx]
+            packed, new_states = qsgd_compress_flat_batch(
+                flats, [states[i] for i in tensor_idx], block=self.block)
+            for i, pk, ns in zip(tensor_idx, packed, new_states):
+                out[i] = (PackedPayload(pk), ns, self._info(payloads[i]))
+        return out
+
+    def _decompress_tree(self, payload: PackedPayload, info, device):
+        return self.decode_batch([payload], [info], device=device)[0]
+
+    def decode_batch(self, payloads, infos, *, device=None):
+        """Fused inverse: one dequantize launch, on ``device``, for every
+        packed tensor in the batch."""
+        packed_idx = [i for i, (p, inf) in enumerate(zip(payloads, infos))
+                      if inf is not None and not inf.get("virtual")
+                      and isinstance(p, PackedPayload)]
+        packed_set = set(packed_idx)
+        out = [None] * len(payloads)
+        for i, (p, inf) in enumerate(zip(payloads, infos)):
+            if i not in packed_set:
+                out[i] = self.decompress(p, inf, device=device)
+        if packed_idx:
+            flats = ops.dequantize_flat_batch(
+                [payloads[i].packed for i in packed_idx], device=device)
+            for i, flat in zip(packed_idx, flats):
+                out[i] = TensorPayload(unflatten_from_meta(
+                    flat, infos[i]["tree_meta"]))
+        return out
 
 
 class ZlibCodec(BaseCodec):
@@ -228,17 +377,19 @@ class ZstdCodec(ZlibCodec):
 
 
 def make_codec(spec) -> Optional[BaseCodec]:
-    """Parse a compression spec: None/'none' -> None, 'zlib'/'zlib:9' or
-    'zstd'/'zstd:3' (wire domain, byte-codec level), or a BaseCodec
-    instance. 'qsgd[:block]' and 'topk[:frac]' raise NotImplementedError
-    until their kernels are ported."""
+    """Parse a compression spec: None/'none' -> None, 'qsgd'/'qsgd:128'
+    (block), 'zlib'/'zlib:9' or 'zstd'/'zstd:3' (wire domain, byte-codec
+    level), or a BaseCodec instance. 'topk[:frac]' raises
+    NotImplementedError until its kernel is ported."""
     if spec is None or isinstance(spec, BaseCodec):
         return spec
     spec = str(spec).strip().lower()
     if spec in ("", "none"):
         return None
     name, _, arg = spec.partition(":")
-    if name in ("qsgd", "topk"):
+    if name == "qsgd":
+        return QsgdCodec(block=int(arg)) if arg else QsgdCodec()
+    if name == "topk":
         raise NotImplementedError(_LATER.format(name))
     if name == "zlib":
         return ZlibCodec(level=int(arg)) if arg else ZlibCodec()
@@ -267,13 +418,13 @@ def split_codecs(compression, wire_codec):
     return codec, wcodec
 
 
-CODECS = {"zlib": ZlibCodec, "zstd": ZstdCodec}
+CODECS = {"qsgd": QsgdCodec, "zlib": ZlibCodec, "zstd": ZstdCodec}
 
 
 def codec_for(name: str) -> BaseCodec:
     """Default-parameter codec instance for decode-side inversion (all
     decode parameters ride in the wire's stage info, so defaults are
     fine)."""
-    if name in ("qsgd", "topk"):
+    if name == "topk":
         raise NotImplementedError(_LATER.format(name))
     return CODECS[name]()

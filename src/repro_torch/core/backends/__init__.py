@@ -1,4 +1,6 @@
-"""Port of ``src/repro/core/backends/__init__.py`` (copied; imports re-pointed).
+"""Port of ``src/repro/core/backends/__init__.py``
+(copied; imports re-pointed, and a ``device`` for the receive path
+added).
 
 Backend registry: the five personalities the paper benchmarks + AUTO.
 
@@ -50,14 +52,17 @@ BACKEND_NAMES = ["mpi_generic", "mpi_mem_buff", "grpc", "torch_rpc",
 
 def make_backend(name: str, env: Environment, fabric: Fabric, host_id: str,
                  store=None, *, compression=None, wire_codec=None,
-                 chunk_mb: float = 0.0, job=None, **kw):
+                 chunk_mb: float = 0.0, job=None, device=None, **kw):
     """``compression``/``wire_codec``/``chunk_mb`` configure the
     backend's wire stack (core/channel.py): 'qsgd[:block]' /
     'topk[:frac]' insert a payload CompressStage, 'zlib[:level]' a
     byte-domain WireCompressStage, chunk_mb > 0 a ChunkStage. Defaults
     reproduce the plain [SerializeStage] stack bit-for-bit. ``job`` (a
     ``transport.JobHandle``) binds the backend to one tenant of a
-    multi-tenant fabric; None is the default single-job tenant."""
+    multi-tenant fabric; None is the default single-job tenant.
+    ``device`` is where the receive path reconstructs real payloads
+    (core/channel.Channel.device; None: the card, resolved at the first
+    real payload)."""
     from repro_torch.compression.stages import split_codecs
     # one shared rule: a byte codec named via `compression` moves to the
     # wire-domain slot; naming two different wire codecs is an error
@@ -65,16 +70,16 @@ def make_backend(name: str, env: Environment, fabric: Fabric, host_id: str,
     if name == "grpc+s3":
         return GrpcS3Backend(env, fabric, host_id, store,
                              compression=compression, wire_codec=wire_codec,
-                             chunk_mb=chunk_mb, job=job, **kw)
+                             chunk_mb=chunk_mb, job=job, device=device, **kw)
     if name == "auto":
         from repro_torch.core.backends.auto import AutoBackend
         return AutoBackend(env, fabric, host_id, store,
                            compression=compression, wire_codec=wire_codec,
-                           chunk_mb=chunk_mb, job=job, **kw)
+                           chunk_mb=chunk_mb, job=job, device=device, **kw)
     if name in POLICIES:
         return CommBackend(POLICIES[name], env, fabric, host_id, store,
                            compression=compression, wire_codec=wire_codec,
-                           chunk_mb=chunk_mb, job=job)
+                           chunk_mb=chunk_mb, job=job, device=device)
     raise KeyError(f"unknown backend '{name}'; options: {BACKEND_NAMES}")
 
 

@@ -1,4 +1,6 @@
-"""Port of ``src/repro/core/backends/auto.py`` (copied; imports re-pointed).
+"""Port of ``src/repro/core/backends/auto.py``
+(copied; imports re-pointed, and a ``device`` for the receive path
+added).
 
 AUTO backend — the paper's §VII deployment guideline as code.
 
@@ -29,7 +31,7 @@ class AutoBackend:
 
     def __init__(self, env, fabric, host_id, store=None, *,
                  compression=None, wire_codec=None, chunk_mb: float = 0.0,
-                 job=None, **kw):
+                 job=None, device=None, **kw):
         from repro_torch.core.backends import POLICIES
         self.env = env
         self.fabric = fabric
@@ -43,19 +45,25 @@ class AutoBackend:
         self.grpc = CommBackend(POLICIES["grpc"], env, fabric, host_id,
                                 compression=compression,
                                 wire_codec=wire_codec, chunk_mb=chunk_mb,
-                                job=job)
+                                job=job, device=device)
         self.membuff = CommBackend(POLICIES["mpi_mem_buff"], env, fabric,
                                    host_id, compression=compression,
                                    wire_codec=wire_codec, chunk_mb=chunk_mb,
-                                   job=job)
+                                   job=job, device=device)
         self.s3 = (GrpcS3Backend(env, fabric, host_id, store,
                                  compression=compression,
-                                 wire_codec=wire_codec, job=job, **kw)
+                                 wire_codec=wire_codec, job=job,
+                                 device=device, **kw)
                    if store is not None and env.name != "lan" else None)
         from repro_torch.compression.stages import split_codecs
         self._codec, self._wire_codec = split_codecs(compression, wire_codec)
         self.endpoint = self.grpc.endpoint
         self.decisions: list = []  # (msg_type, wire nbytes estimate, backend)
+
+    @property
+    def device(self):
+        """Where received real payloads land (every route shares it)."""
+        return self.grpc.device
 
     # ------------------------------------------------------------------
     def _wire_nbytes(self, nbytes: int, payload=None) -> int:

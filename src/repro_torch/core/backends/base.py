@@ -1,4 +1,6 @@
-"""Port of ``src/repro/core/backends/base.py`` (copied; imports re-pointed).
+"""Port of ``src/repro/core/backends/base.py``
+(copied; imports re-pointed, and a ``device`` for the receive path
+added).
 
 CommBackend: the paper's pluggable communication abstraction.
 
@@ -84,7 +86,10 @@ class CommBackend:
     def __init__(self, policy: BackendPolicy, env: Environment,
                  fabric: Fabric, host_id: str, store=None, *,
                  compression=None, wire_codec=None, chunk_mb: float = 0.0,
-                 error_feedback: bool = True, job=None):
+                 error_feedback: bool = True, job=None, device=None):
+        """``device``: where this backend's receive path reconstructs real
+        payloads (Channel.device); None means the card, resolved at the
+        first real payload."""
         self.policy = policy
         self.env = env
         self.fabric = fabric
@@ -105,8 +110,14 @@ class CommBackend:
                                     compression=compression,
                                     wire_codec=wire_codec,
                                     chunk_bytes=int(chunk_mb * MB),
-                                    error_feedback=error_feedback)
+                                    error_feedback=error_feedback,
+                                    device=device)
         self._ser_busy_until = 0.0  # sender serializer busy-line (isend)
+
+    @property
+    def device(self):
+        """Where received real payloads land (None until resolved)."""
+        return self.channel.device
 
     def _encode(self, msg: FLMessage) -> Encoded:
         """Stack-encode one message's payload (256 B for metadata-only,

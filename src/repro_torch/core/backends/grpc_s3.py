@@ -1,4 +1,6 @@
-"""Port of ``src/repro/core/backends/grpc_s3.py`` (copied; imports re-pointed).
+"""Port of ``src/repro/core/backends/grpc_s3.py``
+(copied; imports re-pointed, and a ``device`` for the receive path
+added).
 
 gRPC+S3 — the paper's contribution (§III).
 
@@ -41,7 +43,7 @@ class GrpcS3Backend(CommBackend):
     def __init__(self, env, fabric, host_id, store: ObjectStore,
                  parts: int = S3_MAX_PARTS, presign: bool = True,
                  compression=None, wire_codec=None, chunk_mb: float = 0.0,
-                 job=None):
+                 job=None, device=None):
         # chunk_mb accepted for interface parity but not stacked:
         # multipart PUT/GET *is* this backend's chunk pipelining.
         # Error feedback is off: the content-addressed cache re-serves a
@@ -50,7 +52,7 @@ class GrpcS3Backend(CommBackend):
         # cache hits while other backends kept refining)
         super().__init__(GRPC_S3_POLICY, env, fabric, host_id, store,
                          compression=compression, wire_codec=wire_codec,
-                         error_feedback=False, job=job)
+                         error_feedback=False, job=job, device=device)
         assert store is not None, "grpc+s3 requires an object store"
         self.parts = parts
         self.presign = presign

@@ -1,4 +1,6 @@
-"""Port of ``src/repro/core/channel.py`` (copied; imports re-pointed).
+"""Port of ``src/repro/core/channel.py``
+(copied; imports re-pointed, and a ``device`` for the receive path
+added).
 
 ChannelStack: the composable wire pipeline every backend drives.
 
@@ -31,6 +33,15 @@ Stages and the domains they act on:
   chunk-granularly (transport.Fabric.deliver_chunked) and backends
   pipeline chunk i's transfer behind chunk i-1's.
 
+The port adds one thing to the reference's stack: a Channel has a
+``device``, and decode reconstructs real payloads on it: a qsgd wire is
+dequantised there (through the kernel on a card) and a plain tensor wire
+is copied there, so what a receiver hands to FedAvg or the streaming
+accumulator already lies on the deployment's device. A Channel given no
+device uses the card, resolved when the first real payload decodes, so
+virtual (sized-only) runs need no card; ``device="cpu"`` is the explicit
+way to decode onto the host.
+
 Encode applies payload-domain stages, then the serialize stage, then wire
 stages; decode inverts the provenance recorded on ``WireData.stages``
 right-to-left, so a receiver decodes by *what the wire says was done to
@@ -44,6 +55,11 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple
 
+import torch
+
+from repro_torch import _tree
+from repro_torch._device import resolve_device
+from repro_torch.core.message import PackedPayload, TensorPayload
 from repro_torch.core.serialization import (BaseSerializer, SERIALIZERS, WireData,
                                       decode_wire)
 
@@ -176,10 +192,13 @@ class Channel:
     """One backend's wire pipeline: an ordered WireStage stack driven
     through a single encode/decode pair."""
 
-    def __init__(self, stages: List[WireStage]):
+    def __init__(self, stages: List[WireStage], device=None):
         assert any(isinstance(s, SerializeStage) for s in stages), \
             "a Channel needs a SerializeStage"
         self.stages = list(stages)
+        # where decode reconstructs real payloads (None: the card, resolved
+        # at the first real payload)
+        self.device = None if device is None else torch.device(device)
         self._order = sorted(self.stages, key=lambda s: s.phase)
         self.serializer = next(s.serializer for s in stages
                                if isinstance(s, SerializeStage))
@@ -261,6 +280,28 @@ class Channel:
         receiver's calibrated throughput."""
         return wire.stages or [{"stage": "serialize", "codec": wire.codec}]
 
+    def _device_for(self, *payloads):
+        """This channel's device if any of ``payloads`` is real (None when
+        all are virtual: they have nothing to place)."""
+        if not any(isinstance(p, (TensorPayload, PackedPayload))
+                   for p in payloads):
+            return None
+        if self.device is None:
+            self.device = resolve_device()
+        return self.device
+
+    def _place(self, payload):
+        """A decoded tensor payload on this channel's device."""
+        if not isinstance(payload, TensorPayload):
+            return payload
+        dev = self._device_for(payload)
+
+        def on(leaf):
+            if isinstance(leaf, torch.Tensor):
+                return leaf.to(dev)
+            return torch.tensor(leaf, device=dev)  # wires may be read-only
+        return TensorPayload(_tree.map(on, payload.tree))
+
     def decode(self, wire: WireData):
         """Invert the wire's recorded stages right-to-left. Wire-domain
         steps (wirecodec) transform the wire before the serialize step
@@ -281,9 +322,10 @@ class Channel:
                 cost += self.serializer.deser_time(cur.nbytes)
             else:  # payload-domain compress
                 codec = codec_for(info["codec"])
-                payload = codec.decompress(payload, info)
+                payload = codec.decompress(payload, info,
+                                           device=self._device_for(payload))
                 cost += codec.dec_time(info["orig_nbytes"])
-        return payload, cost
+        return self._place(payload), cost
 
     def encode_batch(self, items: List[Tuple[object, Optional[str]]]
                      ) -> List[Encoded]:
@@ -331,15 +373,16 @@ class Channel:
             results[idx] = (payload, cost)
         for name, members in tail.items():
             codec = codec_for(name)
-            decoded = codec.decode_batch([p for _, p, _ in members],
-                                         [infos[0] for _, _, infos in
-                                          members])
+            payloads = [p for _, p, _ in members]
+            decoded = codec.decode_batch(
+                payloads, [infos[0] for _, _, infos in members],
+                device=self._device_for(*payloads))
             for (idx, _, infos), payload in zip(members, decoded):
                 for info in infos[1:]:
-                    payload = codec_for(info["codec"]).decompress(payload,
-                                                                  info)
+                    payload = codec_for(info["codec"]).decompress(
+                        payload, info, device=self._device_for(payload))
                 results[idx] = (payload, results[idx][1])
-        return results
+        return [(self._place(p), cost) for p, cost in results]
 
     def decode_time(self, wire: WireData) -> float:
         """Decode cost without materialising (planners/broadcast)."""
@@ -402,8 +445,8 @@ def encode_many(items: List[Tuple[Channel, object, Optional[str]]]
 
 
 def make_channel(serializer_name: str, *, compression=None, wire_codec=None,
-                 chunk_bytes: int = 0,
-                 error_feedback: bool = True) -> Channel:
+                 chunk_bytes: int = 0, error_feedback: bool = True,
+                 device=None) -> Channel:
     """Standard stack builder:
     [Compress?] -> Serialize -> [WireCompress?] -> [Chunk?].
 
@@ -421,4 +464,4 @@ def make_channel(serializer_name: str, *, compression=None, wire_codec=None,
         stages.append(WireCompressStage(wcodec))
     if chunk_bytes and chunk_bytes > 0:
         stages.append(ChunkStage(chunk_bytes))
-    return Channel(stages)
+    return Channel(stages, device=device)

@@ -1,18 +1,23 @@
-"""Port of ``src/repro/fl/aggregator.py``, limited to the sync path.
+"""Port of ``src/repro/fl/aggregator.py``: server-side aggregation.
 
 ``fedavg``            — weighted average of client trees, through the
                         ``fedavg_reduce`` kernel.
+``StreamingAccumulator`` — O(model) running fold for the fleet-scale hub
+                        (one ``acc + eff * update`` per arrival, through the
+                        ``fedavg_accumulate`` kernel, instead of buffering
+                        O(clients) update trees).
 ``staleness_weight``  — FedBuff-style polynomial discount for async modes.
 ``merge_global``      — staleness-damped server update (event-driven modes).
 Aggregation compute time is measured for the Fig 5 'aggregation' bars.
 
-``StreamingAccumulator`` and ``fedavg_quantized`` arrive with the
-``fedavg_accumulate`` and ``fedavg_reduce_q8`` kernels.
+``fedavg_quantized`` arrives with the ``fedavg_reduce_q8`` kernel.
 """
 from __future__ import annotations
 
 import time
 from typing import Sequence
+
+import torch
 
 from repro_torch import _tree
 from repro_torch._device import synchronize
@@ -26,6 +31,65 @@ def fedavg(updates: Sequence, weights):
     agg = ops.fedavg_aggregate(updates, weights)
     synchronize(_tree.leaves(agg)[0])  # the seconds enter the round
     return agg, time.perf_counter() - t0
+
+
+class StreamingAccumulator:
+    """O(model) streaming replacement for the hub's dense update buffer.
+
+    ``fold`` adds one effective-weight-scaled update into a flat f32
+    running sum on the update's device (``ops.fedavg_accumulate_flat``,
+    one kernel launch per fold on a card); ``merged`` divides by the
+    summed effective weight, which equals the dense ``fedavg(trees, eff)``
+    normalised average within float tolerance (tested). Virtual payloads
+    fold as bookkeeping only (count / weight sums), so paper-scale runs
+    keep their analytic merge timing.
+    """
+
+    def __init__(self):
+        self.acc = None  # flat f32 running sum of eff-weighted updates
+        self.unflatten = None
+        self.sum_eff = 0.0
+        self.sum_weight = 0.0
+        self.count = 0  # client updates folded (records' ``count`` sum)
+        self.agg_s = 0.0  # accumulated fold compute seconds
+
+    def fold(self, rec, alpha: float):
+        """rec: scheduler UpdateRecord; alpha: its staleness discount."""
+        from repro_torch.core.message import TensorPayload
+        eff = rec.weight * float(alpha)
+        self.sum_eff += eff
+        self.sum_weight += rec.weight
+        self.count += rec.count
+        if isinstance(rec.payload, TensorPayload):
+            t0 = time.perf_counter()
+            flat, unflatten = ops.flatten_pytree(rec.payload.tree)
+            if self.acc is None:
+                self.unflatten = unflatten
+                self.acc = ops.fedavg_accumulate_flat(
+                    torch.zeros_like(flat), flat, eff)
+            else:
+                self.acc = ops.fedavg_accumulate_flat(self.acc, flat, eff)
+            synchronize(self.acc)
+            self.agg_s += time.perf_counter() - t0
+
+    def merged(self):
+        """-> (merged tree | None, measured agg seconds)."""
+        if self.acc is None or self.sum_eff <= 0:
+            return None, self.agg_s
+        t0 = time.perf_counter()
+        sum_eff = torch.tensor(self.sum_eff, dtype=torch.float32,
+                               device=self.acc.device)
+        tree = self.unflatten(self.acc / sum_eff)
+        synchronize(_tree.leaves(tree)[0])
+        return tree, self.agg_s + time.perf_counter() - t0
+
+    def reset(self):
+        self.acc = None
+        self.unflatten = None
+        self.sum_eff = 0.0
+        self.sum_weight = 0.0
+        self.count = 0
+        self.agg_s = 0.0
 
 
 def simulated_agg_time(nbytes: int, n_clients: int,

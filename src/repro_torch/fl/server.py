@@ -1,5 +1,6 @@
-"""Port of ``src/repro/fl/server.py`` (sync rounds; the event-driven
-runtime arrives with a later slice).
+"""Port of ``src/repro/fl/server.py``: sync rounds (``run_round``) and the
+event-driven runtime's entry point (``run_async``). Received updates land
+on the device of the server backend's channel (core/channel.py).
 
 FL server: round orchestration over any CommBackend, with concurrent
 dispatch, quorum/deadline straggler mitigation, fault handling and the
@@ -252,11 +253,27 @@ class FLServer:
         return report
 
     # ------------------------------------------------------------------
-    def run_async(self, global_payload, strategy, **kwargs):
-        """Event-driven execution (fl/scheduler.py in the reference)."""
-        raise NotImplementedError(
-            "event-driven runtime: later slice (not ported to repro_torch "
-            "yet; sync rounds run through run_round)")
+    def run_async(self, global_payload, strategy, *, availability=None,
+                  cohort_k: int = 0, cohort_seed: int = 0,
+                  streaming_hub: bool = False, **limits):
+        """Event-driven execution of this deployment (fl/scheduler.py):
+        same backend + clients, but the strategy decides when to merge.
+        ``availability``: optional fl/fault.AvailabilityTrace replayed as
+        join/leave loop events; ``cohort_k``/``streaming_hub``: the
+        fleet-scale knobs, passed through to the scheduler.
+        Returns (AsyncRunReport, FLScheduler)."""
+        from repro_torch.fl.scheduler import FLScheduler
+        sched = FLScheduler(self.backend, self.clients, strategy,
+                            local_steps=self.local_steps,
+                            server_lr=self.server_lr,
+                            availability=availability,
+                            cohort_k=cohort_k, cohort_seed=cohort_seed,
+                            streaming_hub=streaming_hub)
+        report = sched.run(global_payload, **limits)
+        if sched.global_params is not None:
+            self.global_params = sched.global_params
+        self.now = sched.loop.now
+        return report, sched
 
 
 def quorum_cutoff(ready_sorted, n_expected: int, quorum_fraction: float,

@@ -1,15 +1,15 @@
 """Port of ``src/repro/kernels/fedavg_reduce.py``: the FL server's
-weighted aggregation of N client updates, ``out = sum_i w_i * x_i``.
+weighted aggregation of N client updates, ``out = sum_i w_i * x_i``
+(``fedavg_reduce``), and its streaming form, one weighted update folded
+into a running sum, ``acc + w * x`` (``fedavg_accumulate``, the
+fleet-scale hub's fold). ``fedavg_reduce_q8`` waits for the slice whose
+path reaches it (see ROADMAP.md queue B).
 
-Only ``fedavg_reduce`` (the sync FedAvg kernel) is ported in this slice;
-``fedavg_accumulate`` and ``fedavg_reduce_q8`` wait for the slices whose
-paths reach them (see ROADMAP.md queue B).
-
-Dispatch is by the device of the tensor given: a CPU tensor goes to
-``fedavg_reduce_plain``; a CUDA tensor goes to the hand-written Hopper
-kernel in ``csrc/fedavg_reduce.cu`` (built with ``nvcc`` at first use)
-or raises. ``LAUNCHES`` counts kernel launches, so a run can show that
-its path went through the kernel.
+Dispatch is by the device of the tensor given: a CPU tensor goes to the
+plain version; a CUDA tensor goes to the hand-written Hopper kernels in
+``csrc/fedavg_reduce.cu`` (built with ``nvcc`` at first use) or raises.
+``LAUNCHES`` and ``ACCUMULATE_LAUNCHES`` count kernel launches, so a run
+can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from repro_torch.kernels import _build
 
 SOURCES = ("fedavg_reduce.cu",)
 LAUNCHES = 0
+ACCUMULATE_LAUNCHES = 0
 
 _SYMBOLS = {torch.float32: "fedavg_reduce_f32",
             torch.bfloat16: "fedavg_reduce_bf16"}
@@ -32,6 +33,13 @@ def fedavg_reduce_plain(updates: torch.Tensor,
     return torch.sum(updates.float() * weights.float()[:, None], dim=0)
 
 
+def fedavg_accumulate_plain(acc: torch.Tensor, x: torch.Tensor,
+                            w: float) -> torch.Tensor:
+    """acc, x (T,), w scalar -> (T,) f32 ``acc + w * x``
+    (``kernels/ref.py:50``): a rounded multiply, then a rounded add."""
+    return acc.float() + torch.mul(x.float(), float(w))
+
+
 def build() -> ctypes.CDLL:
     """Compile (or load the cached) kernel library and bind its symbols."""
     lib = _build.load("fedavg_reduce", SOURCES)
@@ -40,6 +48,10 @@ def build() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.fedavg_accumulate_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p]
+    lib.fedavg_accumulate_f32.restype = ctypes.c_int
     lib.fedavg_error_string.argtypes = [ctypes.c_int]
     lib.fedavg_error_string.restype = ctypes.c_char_p
     return lib
@@ -81,4 +93,40 @@ def fedavg_reduce(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
                            f"{lib.fedavg_error_string(rc).decode()}")
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def fedavg_accumulate(acc: torch.Tensor, x: torch.Tensor,
+                      w: float) -> torch.Tensor:
+    """acc, x: (T,) f32 on one device; w: Python scalar -> a new (T,) f32
+    ``acc + w * x``. Any T: the kernel masks its ragged tail."""
+    if acc.dim() != 1 or acc.shape != x.shape:
+        raise ValueError(f"fedavg_accumulate: need two (T,) vectors, got "
+                         f"{tuple(acc.shape)} and {tuple(x.shape)}")
+    if acc.device != x.device:
+        raise ValueError(f"fedavg_accumulate: acc on {acc.device}, x on "
+                         f"{x.device}")
+    if acc.device.type == "cpu":
+        return fedavg_accumulate_plain(acc, x, w)
+    if acc.device.type != "cuda":
+        raise ValueError(f"fedavg_accumulate: no kernel for {acc.device}")
+    if acc.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"fedavg_accumulate: acc and x must be float32, "
+                        f"got {acc.dtype} and {x.dtype}")
+    if not (acc.is_contiguous() and x.is_contiguous()):
+        raise ValueError("fedavg_accumulate: inputs must be contiguous")
+    t = acc.shape[0]
+    out = torch.empty(t, dtype=torch.float32, device=acc.device)
+    if t == 0:
+        return out
+    lib = build()
+    with torch.cuda.device(acc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fedavg_accumulate_f32(acc.data_ptr(), x.data_ptr(),
+                                       float(w), out.data_ptr(), t, stream)
+    if rc != 0:
+        raise RuntimeError(f"fedavg_accumulate kernel launch failed: "
+                           f"{lib.fedavg_error_string(rc).decode()}")
+    global ACCUMULATE_LAUNCHES
+    ACCUMULATE_LAUNCHES += 1
     return out

@@ -1,5 +1,6 @@
-"""Port of ``src/repro/launch/fl_train.py`` (the sync round; the
-event-driven, sweep and multi-tenant runners arrive with later slices).
+"""Port of ``src/repro/launch/fl_train.py``: the sync round and the
+event-driven runtime (``--mode fedbuff|semisync|hier``); the vertical,
+sweep and multi-tenant runners arrive with later slices.
 
 Cross-silo FL driver — the paper's end-to-end system, live.
 
@@ -10,6 +11,12 @@ card unless ``--device`` names another device:
 
     PYTHONPATH=src python -m repro_torch.launch.fl_train --backend grpc+s3 \\
         --environment geo_distributed --rounds 3 --tier small
+    PYTHONPATH=src python -m repro_torch.launch.fl_train \\
+        --scenario examples/scenarios/geo_wan_qsgd.json --device cpu
+
+``--mode fedbuff|semisync|hier`` switches to the event-driven runtime
+(fl/scheduler.py): clients run independently and ``--rounds`` counts
+server aggregations instead of lockstep rounds.
 
 The experiment is one declarative ``Scenario`` (repro_torch/scenario/):
 ``--scenario FILE`` loads one, and every other flag is an override on
@@ -25,16 +32,19 @@ import torch
 from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import FLConfig
-from repro_torch.configs.paper_tiers import build_tier_model
+from repro_torch.configs.paper_tiers import TIERS, build_tier_model
 from repro_torch.core import TensorPayload
 from repro_torch.core.backends import BACKEND_NAMES
 from repro_torch.data import make_silo_datasets
-from repro_torch.fl import FLClient, FLServer
-from repro_torch.fl.fault import FaultPlan, apply_stragglers
+from repro_torch.fl import FLClient, FLServer, make_strategy
+from repro_torch.fl.fault import (FaultPlan, apply_stragglers,
+                                  make_availability)
 from repro_torch.scenario import (TOPOLOGY_PRESETS, Scenario, ScenarioError,
                                   build_runtime, with_overrides)
 
 LEARNING_RATE = 0.05
+_VERTICAL = ("--mode vertical: vertical FL is not yet ported to repro_torch "
+             "(ROADMAP.md queue A, item 13)")
 
 
 def make_train_fn(model):
@@ -79,10 +89,8 @@ def build_deployment(fl_cfg: FLConfig, *, tier: str = "small",
     else:
         sc = fl_cfg.to_scenario(tier=tier, local_steps=local_steps,
                                 store_fail_rate=fail_rate)
-    if fl_cfg.mode != "sync":
-        raise NotImplementedError(
-            f"mode '{fl_cfg.mode}': the event-driven runtime is not ported "
-            f"to repro_torch yet (sync only)")
+    if fl_cfg.mode == "vertical":
+        raise NotImplementedError(_VERTICAL)
     rt = build_runtime(sc)
     env, store = rt.env, rt.store
 
@@ -99,21 +107,77 @@ def build_deployment(fl_cfg: FLConfig, *, tier: str = "small",
                                examples_per_silo=64, num_classes=8,
                                image_size=16, seed=fl_cfg.seed)
     train_fn = make_train_fn(model)
+    # event-driven modes charge the tier-calibrated training time instead
+    # of measured wall seconds ("live compute, simulated clock"): measured
+    # seconds must not reorder event arrivals between runs or devices
+    sim_train = (0.0 if fl_cfg.mode == "sync"
+                 else TIERS[tier].train_s(fl_cfg.environment))
+    # the payload codec rides the clients' *update* path (fedbuff /
+    # semisync; hier compresses the relay WAN hop inside the strategy
+    # instead, and sync rounds aggregate the exact in-process trees). The
+    # server's broadcast stays uncompressed. The wire codec and chunked
+    # pipelining are lossless and ride every backend (Runtime applies
+    # them). Every backend decodes onto the deployment's device.
+    client_compression = (fl_cfg.compression
+                          if fl_cfg.mode in ("fedbuff", "semisync")
+                          else "none")
     clients = []
     for i, host in enumerate(env.clients):
-        # sync rounds aggregate the exact trees, so the payload codec
-        # stays off; a wire codec rides every backend (Runtime applies it)
-        cb = rt.make_backend(host.host_id, compression="none")
+        cb = rt.make_backend(host.host_id, compression=client_compression,
+                             device=device)
         clients.append(FLClient(host.host_id, cb, dataset=silos[i],
                                 train_fn=train_fn, batch_size=16,
+                                sim_train_s=sim_train,
                                 seed=fl_cfg.seed + i, device=device))
-    server_backend = rt.make_backend("server", compression="none")
+    server_backend = rt.make_backend("server", compression="none",
+                                     device=device)
     server = FLServer(server_backend, clients,
                       quorum_fraction=fl_cfg.quorum_fraction,
                       round_deadline_s=fl_cfg.round_deadline_s,
                       local_steps=local_steps)
     server.model = model
     return server, params, env, store
+
+
+def run_event_driven(fl_cfg: FLConfig, server: FLServer, params, store,
+                     scenario: Scenario):
+    """Async / semi-sync / hierarchical execution over the same
+    deployment. Returns (AsyncRunReport, FLScheduler)."""
+    strategy = make_strategy(fl_cfg, fl_cfg.num_clients)
+    availability = make_availability(
+        fl_cfg.availability_trace,
+        [c.client_id for c in server.clients],
+        horizon_s=scenario.faults.trace_horizon_s, seed=fl_cfg.seed)
+    report, sched = server.run_async(TensorPayload(params), strategy,
+                                     availability=availability,
+                                     cohort_k=fl_cfg.cohort_k,
+                                     cohort_seed=fl_cfg.seed,
+                                     streaming_hub=fl_cfg.streaming_hub,
+                                     max_aggregations=fl_cfg.rounds)
+    print(f"[fl:{report.mode}] backend={report.backend} "
+          f"sim_time={report.sim_time:.2f}s "
+          f"aggregations={report.n_aggregations} "
+          f"client_updates={report.n_client_updates} "
+          f"(effective {report.effective_updates:.2f}, "
+          f"mean staleness {report.mean_staleness:.2f}, "
+          f"{report.n_discarded} discarded)")
+    if availability is not None or fl_cfg.link_loss_rate > 0:
+        fabric = server.backend.fabric
+        print(f"[fl:{report.mode}] churn: {report.n_departures} departures, "
+              f"{report.n_rejoins} rejoins "
+              f"({report.n_late_refetches} S3 late re-fetches); faults: "
+              f"{report.n_transfer_failures} failed transfers, "
+              f"{fabric.stats['retransmits']:.0f} chunk retransmits")
+    for ev in sched.agg_log:
+        print(f"    v{ev.version}: t={ev.time:8.2f}s n={ev.n_updates} "
+              f"staleness={ev.mean_staleness:.2f} "
+              f"loss={ev.loss if ev.loss is not None else float('nan'):.4f}")
+    losses = [ev.loss for ev in sched.agg_log if ev.loss is not None]
+    ok = len(losses) >= 2 and losses[-1] < losses[0] + 1e-6
+    print(f"[fl:{report.mode}] throughput={report.aggregations_per_hour:.1f} "
+          f"agg/h, {report.client_updates_per_hour:.1f} updates/h "
+          f"({'improving' if ok else 'check'})  s3_stats={store.stats}")
+    return report, sched
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -281,13 +345,17 @@ def main(argv=None):
         ap.error("--sweep / --multi: the sweep and multi-tenant runners "
                  "are not yet ported to repro_torch")
     sc = resolve_scenario(args, ap)
-    if sc.strategy.mode != "sync":
-        ap.error(f"--mode {sc.strategy.mode}: the event-driven runtime is "
-                 f"not yet ported to repro_torch (sync only)")
+    if sc.strategy.mode == "vertical":
+        ap.error(_VERTICAL)
 
     if sc.channel.backend == "grpc+s3" and sc.topology.kind == "lan":
         print("[fl] note: paper omits grpc+s3 on LAN; switching to auto")
         sc = with_overrides(sc, {"channel.backend": "auto"})
+    if sc.channel.compression != "none" and sc.strategy.mode == "sync":
+        print("[fl] note: payload compression rides the event-driven "
+              "update path; sync rounds aggregate exact in-proc trees, "
+              "ignoring")
+        sc = with_overrides(sc, {"channel.compression": "none"})
 
     fl_cfg = sc.fl_config()
     print(f"[fl] scenario '{sc.name}': topology={sc.topology.kind} "
@@ -299,6 +367,9 @@ def main(argv=None):
             scenario=sc, device=args.device)
     except (RuntimeError, NotImplementedError, KeyError) as e:
         ap.error(str(e))
+    if sc.strategy.mode != "sync":
+        run_event_driven(fl_cfg, server, params, store, sc)
+        return 0
     fault = FaultPlan(drop_rate=args.drop_rate, seed=1)
 
     losses = []

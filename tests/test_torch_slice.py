@@ -150,7 +150,7 @@ def test_cli_runs_sync_rounds_on_cpu(capsys):
     assert "round 1:" in out and "losses:" in out
 
 
-@pytest.mark.parametrize("argv", [["--mode", "fedbuff"],
+@pytest.mark.parametrize("argv", [["--mode", "vertical"],
                                   ["--sweep", "x.json"],
                                   ["--multi", "x.json"]])
 def test_cli_refuses_unported_runners(argv, capsys):
@@ -160,7 +160,7 @@ def test_cli_refuses_unported_runners(argv, capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("spec", ["qsgd", "topk:0.1"])
+@pytest.mark.parametrize("spec", ["topk", "topk:0.1"])
 def test_payload_codecs_refuse_until_ported(spec):
     with pytest.raises(NotImplementedError):
         make_codec(spec)
