@@ -33,12 +33,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 8. the event-driven reference check: a reduced semisync run at quorum 1.0
    on the card against the same run on the CPU, without a payload codec
    and with qsgd, the card once with cuDNN's deterministic algorithms and
-   once with its default ones.
+   once with its default ones;
+9. ``fl.aggregator.fedavg_quantized`` on 5 qsgd-packed full-width ResNet56
+   updates (host wire buffers), through the ``fedavg_reduce_q8`` kernel,
+   held against FedAvg of the dequantised trees and against the plain
+   version on the same inputs, and timed;
+10. the Medium tier's MobileNetV3 at full width: one loss and gradient on
+   the card (f32) against the CPU (f64), from the same parameters and
+   batch.
 
 Phase 3 also holds ``quantize_blocks``, ``dequantize_blocks`` and
 ``fedavg_accumulate`` against their plain versions (ragged shapes, then
 the main path's (3392, 256) and T = 868,123) and times them, and times
-the host-side flat wrappers around them on one ResNet56 update.
+the host-side flat wrappers around them on one ResNet56 update; then
+``topk_rows`` (edge shapes with ties and signed zeros, then one
+MobileNetV3 and one ResNet56 update at ``topk:0.05``) and
+``fedavg_reduce_q8`` (edge shapes, then 5 ResNet56 updates), and the top-k
+codec's host work on one MobileNetV3 update. Phase 7 also runs the repo's
+``examples/scenarios/hospitals_geo3.json`` as written (semisync, grpc+s3,
+``topk:0.05`` + ``zlib:3``, 3 geo silos, the Medium tier's MobileNetV3 at
+full width, 20 aggregations) and fedbuff + top-k on grpc (7 silos,
+ResNet56), with every ``topk_rows`` call held against its plain version.
 
 Each phase's wall seconds are printed as it ends. The last lines are the
 ``kernels`` JSON record and the ``ok`` line. The script imports neither
@@ -64,14 +79,18 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import _tree  # noqa: E402
-from repro_torch.compression.stages import QsgdCodec  # noqa: E402
+from repro_torch.compression.stages import QsgdCodec, TopkCodec  # noqa: E402
 from repro_torch.configs.base import FLConfig  # noqa: E402
 from repro_torch.core import TensorPayload  # noqa: E402
+from repro_torch.data import make_silo_datasets  # noqa: E402
+from repro_torch.fl.aggregator import fedavg, fedavg_quantized  # noqa: E402
 from repro_torch.kernels import fedavg_reduce as fr  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
+from repro_torch.kernels import topk as tk  # noqa: E402
 from repro_torch.launch import fl_train  # noqa: E402
-from repro_torch.models.vision import ResNet, ResNetConfig  # noqa: E402
+from repro_torch.models.vision import (MobileNetConfig, MobileNetV3,  # noqa: E402
+                                       ResNet, ResNetConfig)
 
 # Device-memory rate of the card the port targets (NVIDIA data sheet),
 # for the bytes bound.
@@ -93,14 +112,25 @@ QSGD_BLOCK = 256
 MAIN_ROWS = -(-MAIN_T // (QSGD_BLOCK * qz.ROW_TILE)) * qz.ROW_TILE
 QUANT_OPS = 6  # per element: |x|, max, multiply, round, two clamps
 FLUSH_BYTES = 256 * 2 ** 20  # > the 50 MB L2
+TOPK_FRAC = 0.05  # hospitals_geo3.json's topk:0.05, and the codec default
+MEDIUM_T = 4_375_723  # MobileNetConfig() parameters: one Medium update
+Q8_N = 5  # fedavg_quantized: the main path's FedAvg count of updates
+Q8_T = MAIN_ROWS * QSGD_BLOCK  # one ResNet56 update on the qsgd wire
 KERNELS = ("fedavg_reduce", "fedavg_accumulate", "quantize_blocks",
-           "dequantize_blocks")
+           "dequantize_blocks", "fedavg_reduce_q8", "topk_rows")
 _MODULE = {"fedavg_reduce": fr, "fedavg_accumulate": fr,
-           "quantize_blocks": qz, "dequantize_blocks": qz}
+           "quantize_blocks": qz, "dequantize_blocks": qz,
+           "fedavg_reduce_q8": fr, "topk_rows": tk}
 _COUNTER = {"fedavg_reduce": "LAUNCHES",
             "fedavg_accumulate": "ACCUMULATE_LAUNCHES",
             "quantize_blocks": "QUANTIZE_LAUNCHES",
-            "dequantize_blocks": "DEQUANTIZE_LAUNCHES"}
+            "dequantize_blocks": "DEQUANTIZE_LAUNCHES",
+            "fedavg_reduce_q8": "Q8_LAUNCHES", "topk_rows": "LAUNCHES"}
+
+
+def topk_k(t: int) -> int:
+    """The codec's k for a row of t entries (as ``ops.topk_flat_batch``)."""
+    return max(1, int(t * TOPK_FRAC))
 
 
 def log(msg: str) -> None:
@@ -130,17 +160,50 @@ def time_cold(fn, reps: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def synchronize() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def time_host(fn, reps: int = 20) -> float:
     """Median wall ms of ``fn()`` ending in a device synchronise."""
     fn()
-    torch.cuda.synchronize()
+    synchronize()
     out = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(out)
+
+
+def device_breakdown(fn, reps: int = 5):
+    """[(kernel name, device µs per call, launches per call)] of ``fn()``
+    from ``torch.profiler`` (warm, L2 not flushed), largest first; empty
+    when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((e.key, us / reps, e.count / reps))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def short_name(kernel: str) -> str:
+    """'void (anonymous namespace)::hist_kernel<float>(...)' -> 'hist_kernel<float>'."""
+    name = kernel.replace("(anonymous namespace)::", "")
+    name = name.split("(")[0]
+    return name[5:] if name.startswith("void ") else name
 
 
 def launches() -> dict:
@@ -255,7 +318,35 @@ def hold_accumulate(acc, x, w, got) -> float:
     return err
 
 
+def hold_topk(x, k, got) -> float:
+    """idx equal and vals equal bit for bit (as int32 views: torch.equal
+    calls -0.0 equal to +0.0). Returns the max abs error of vals (0 when
+    exact)."""
+    idx, vals = got
+    pi, pv = tk.topk_rows_plain(x, k)
+    err = float((vals - pv).abs().max()) if vals.numel() else 0.0
+    if not (idx.dtype == torch.int32 and torch.equal(idx, pi)
+            and torch.equal(vals.view(torch.int32), pv.view(torch.int32))):
+        raise AssertionError(f"topk_rows disagrees with its plain version "
+                             f"at {tuple(x.shape)} {x.dtype}, k = {k}: "
+                             f"max abs err {err:.3e}")
+    return err
+
+
+def hold_q8(q, s, w, block, got) -> float:
+    want = fr.fedavg_reduce_q8_plain(q, s, w, block)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if got.shape != want.shape or got.dtype != torch.float32 \
+            or not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"fedavg_reduce_q8 disagrees with its plain "
+                             f"version at {tuple(q.shape)} block {block}: "
+                             f"max abs err {err:.3e}")
+    return err
+
+
 HOLD = {"fedavg_reduce": lambda args, out: hold_against_plain(*args, out),
+        "topk_rows": lambda args, out: hold_topk(*args, out),
+        "fedavg_reduce_q8": lambda args, out: hold_q8(*args, out),
         "quantize_blocks": lambda args, out: hold_quantize(*args, out),
         "dequantize_blocks": lambda args, out: hold_dequantize(
             args[0], args[1], args[2] if len(args) > 2 else torch.float32,
@@ -360,9 +451,123 @@ def new_kernels_phase(card: str) -> dict:
     return rec
 
 
+def topk_rows_input(b: int, t: int, dtype, g) -> torch.Tensor:
+    """(b, t) on the card: normal values with |value| ties of both signs,
+    +-0.0, a run of equal magnitudes and, for b > 1, a row of signed
+    zeros only."""
+    x = torch.randn((b, t), generator=g, device="cuda")
+    if t >= 8:
+        x[:, 1] = -x[:, 0]
+        x[:, 3] = x[:, 2]
+        x[:, t // 2] = x[:, 0]
+        x[:, -1] = -0.0
+        x[:, -2] = 0.0
+    if t >= 64:
+        x[:, 8:40] = 0.125
+        x[:, 20:30] *= -1
+    if b > 1:
+        x[1] = 0.0
+        x[1, ::3] = -0.0
+    return x.to(dtype)
+
+
+def last_kernels_phase(card: str) -> dict:
+    """Phase 3 for ``topk_rows`` and ``fedavg_reduce_q8``: edge shapes,
+    then the main paths' shapes, held and timed."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rec = {}
+    terr = qerr = 0.0
+    n_checked = 0
+    for b in (1, 3):
+        for t in (1, 8, 1000, 4099, 65_537):
+            for k in sorted({1, max(1, int(0.05 * t)), t}):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = topk_rows_input(b, t, dtype, g)
+                    terr = max(terr, hold_topk(x, k, tk.topk_rows(x, k)))
+                    n_checked += 1
+    log(f"topk_rows, {n_checked} edge cases (B 1/3, T 1..65,537, k 1 / 5 % "
+        f"/ T, ties, +-0.0, zero rows, f32 and bf16): idx and vals bit-exact")
+    for n in (1, 3, 5):
+        for t in (256, 2048 + 256, Q8_T):
+            for block in (128, 256):
+                q = torch.randint(-127, 128, (n, t), generator=g,
+                                  device="cuda", dtype=torch.int8)
+                s = torch.rand((n, t // block), generator=g,
+                               device="cuda") * 1e-2
+                w = torch.rand((n,), generator=g, device="cuda") + 0.5
+                w = w / w.sum()
+                qerr = max(qerr, hold_q8(q, s, w, block,
+                                         fr.fedavg_reduce_q8(q, s, w, block)))
+    log(f"fedavg_reduce_q8, N 1/3/5, T' 256/2304/{Q8_T}, block 128/256: max "
+        f"abs err {qerr:.3e}")
+
+    # the main paths' shapes: one Medium and one Small update at topk:0.05
+    for t in (MEDIUM_T, MAIN_T):
+        k = topk_k(t)
+        x = torch.randn((1, t), generator=g, device="cuda") * 1e-2
+        err = hold_topk(x, k, tk.topk_rows(x, k))
+        nbytes = 4 * t + 8 * k  # read the row, write idx and vals
+        bound_ms, bound_by = bound(nbytes, 0, card)
+        kernel_ms = time_cold(lambda: tk.topk_rows(x, k), reps=20)
+        plain_ms = time_cold(lambda: tk.topk_rows_plain(x, k), reps=20)
+        library_ms = time_cold(lambda: torch.topk(x.abs(), k), reps=20)
+        log(f"topk_rows (1, {t}) k={k}: bit-exact; kernel_ms={kernel_ms:.6f} "
+            f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+            f"(torch.topk(x.abs(), k)) bound_ms={bound_ms:.6f} ({nbytes} "
+            f"bytes, {bound_by}; {card})")
+        parts = device_breakdown(lambda: tk.topk_rows(x, k))
+        log(f"topk_rows (1, {t}) by kernel (torch.profiler, warm, µs per "
+            f"call): " + ("; ".join(f"{short_name(name)} {us:.3f} "
+                                   f"(x{n:g})" for name, us, n in parts)
+                          or "no device time recorded"))
+        if t == MEDIUM_T:  # the slice's main path: its line in the record
+            rec["topk_rows"] = {"max_abs_err": max(err, terr),
+                                "ms": kernel_ms, "plain_ms": plain_ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by,
+                                "library_ms": library_ms}
+
+    q = torch.randint(-127, 128, (Q8_N, Q8_T), generator=g, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((Q8_N, Q8_T // QSGD_BLOCK), generator=g,
+                   device="cuda") * 1e-2
+    w = torch.full((Q8_N,), 1.0 / Q8_N, device="cuda")
+    err = hold_q8(q, s, w, QSGD_BLOCK, fr.fedavg_reduce_q8(q, s, w, QSGD_BLOCK))
+    nbytes = Q8_N * Q8_T + 4 * Q8_N * (Q8_T // QSGD_BLOCK) + 4 * Q8_N \
+        + 4 * Q8_T
+    bound_ms, bound_by = bound(nbytes, 3 * Q8_N * Q8_T, card)
+    kernel_ms = time_cold(lambda: fr.fedavg_reduce_q8(q, s, w, QSGD_BLOCK))
+    plain_ms = time_cold(lambda: fr.fedavg_reduce_q8_plain(q, s, w,
+                                                          QSGD_BLOCK))
+    log(f"fedavg_reduce_q8 ({Q8_N}, {Q8_T}) block {QSGD_BLOCK}: max abs err "
+        f"{err:.3e} kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
+        f"library_ms=None (no one call computes it) bound_ms={bound_ms:.6f} "
+        f"({nbytes} bytes, {bound_by}; {card})")
+    rec["fedavg_reduce_q8"] = {"max_abs_err": max(err, qerr),
+                               "ms": kernel_ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "library_ms": None}
+
+    # the top-k codec's host work on one MobileNetV3 update
+    model = MobileNetV3(MobileNetConfig(), device="cuda")
+    tree = model.init(torch.Generator().manual_seed(3))
+    codec = TopkCodec(TOPK_FRAC)
+    (pp, _, info), = codec.encode_batch([TensorPayload(tree)], [None])
+    host = {
+        "TopkCodec.encode_batch (flatten 151 leaves, kernel, device->host "
+        "copy of idx and vals)":
+            lambda: codec.encode_batch([TensorPayload(tree)], [None]),
+        "TopkCodec.decode_batch (host->device copy, scatter, unflatten)":
+            lambda: codec.decode_batch([pp], [info], device="cuda"),
+    }
+    for what, fn in host.items():
+        log(f"{what}, one MobileNetV3 update: {time_host(fn):.6f} ms host "
+            f"clock ({card})")
+    return rec
+
+
 @contextlib.contextmanager
 def recording(calls: dict):
-    """Keep the inputs and output of every call of the four kernel
+    """Keep the inputs and output of every call of the kernel
     wrappers (``calls[name]``: a list of (args, out)), so each can be held
     against its plain version after the run, outside its timed state."""
     kept = {name: getattr(_MODULE[name], name) for name in KERNELS}
@@ -528,6 +733,13 @@ EVENT_RUNS = (
                             "--backend", "grpc", "--environment",
                             "geo_distributed", "--clients", "14",
                             "--rounds", "2"]),
+    # the Medium tier (MobileNetV3, full width) with the top-k codec
+    ("hospitals_geo3.json", ["--scenario", str(
+        ROOT / "examples" / "scenarios" / "hospitals_geo3.json")]),
+    ("fedbuff+topk grpc", ["--mode", "fedbuff", "--compression", "topk",
+                           "--backend", "grpc", "--environment",
+                           "geo_distributed", "--clients", "7", "--rounds",
+                           "3"]),
 )
 
 
@@ -564,6 +776,36 @@ def expect(name: str, what: str, got: int, want: int, at_least=False):
                              f"{'>= ' if at_least else ''}{want}")
 
 
+TOPK_RUNS = ("hospitals_geo3.json", "fedbuff+topk grpc")
+
+
+def check_global(name: str, sched) -> None:
+    leaves = _tree.leaves(sched.global_params)
+    if not all(l.is_cuda and bool(torch.isfinite(l).all()) for l in leaves):
+        raise AssertionError(f"{name}: global params left the card or are "
+                             f"not finite")
+
+
+def topk_checks(name, calls, got, sched, n_upd, n_agg) -> None:
+    """A top-k run (fedbuff or semisync, no hub): every update's row went
+    through ``topk_rows`` at the model's length and the codec's k, FedAvg
+    ran once per aggregation, and nothing was quantised."""
+    t = sum(l.numel() for l in _tree.leaves(sched.global_params))
+    if name == "hospitals_geo3.json":
+        expect(name, "parameters of the Medium tier", t, MEDIUM_T)
+    shapes = {tuple(args[0].shape[1:]) + (int(args[1]),)
+              for args, _ in calls.get("topk_rows", [])}
+    if shapes != {(t, topk_k(t))}:
+        raise AssertionError(f"{name}: topk_rows ran at (T, k) {shapes}, "
+                             f"expected {(t, topk_k(t))}")
+    rows = sum(args[0].shape[0] for args, _ in calls.get("topk_rows", []))
+    expect(name, "update rows through topk_rows", rows, n_upd, at_least=True)
+    expect(name, "fedavg_reduce launches", got["fedavg_reduce"], n_agg)
+    for k in ("quantize_blocks", "dequantize_blocks", "fedavg_accumulate"):
+        expect(name, f"{k} launches", got[k], 0)
+    check_global(name, sched)
+
+
 def event_path(device, errs: dict) -> dict:
     """Phase 7: each run with every launch count at 0 just before it and
     read just after. Returns the launches summed over the runs."""
@@ -588,12 +830,20 @@ def event_path(device, errs: dict) -> dict:
                            if isinstance(a, torch.Tensor)):
                     raise AssertionError(f"{name}: {k} got a host tensor")
                 errs[k] = max(errs[k], HOLD[k](args, out))
-        # what the report implies (MAIN_ROWS rows per ResNet56 update)
         n_upd, n_agg = rep.n_client_updates, rep.n_aggregations
+        strat = sched.strategy
+        if name in TOPK_RUNS:
+            topk_checks(name, calls, got, sched, n_upd, n_agg)
+            log(f"{name}: sim_time={rep.sim_time:.4f}s aggregations={n_agg} "
+                f"client_updates={n_upd} mean_staleness="
+                f"{rep.mean_staleness:.4f} wall={wall:.3f}s; launches {got}; "
+                f"topk_rows rows per call "
+                f"{sorted({a[0].shape[0] for a, _ in calls['topk_rows']})}")
+            continue
+        # what the report implies (MAIN_ROWS rows per ResNet56 update)
         q_upd = _rows(calls, "quantize_blocks") / MAIN_ROWS
         dq_upd = _rows(calls, "dequantize_blocks") / MAIN_ROWS
         expect(name, "rows of one update", update_rows(sched), MAIN_ROWS)
-        strat = sched.strategy
         if strat.name == "hier":  # relay partials ride the WAN codec
             regions = len(strat.groups)
             expect(name, "fedavg_reduce launches", got["fedavg_reduce"],
@@ -612,16 +862,13 @@ def event_path(device, errs: dict) -> dict:
             expect(name, "updates quantised", q_upd, n_upd, at_least=True)
             expect(name, "updates dequantised", dq_upd,
                    (2 if ef else 1) * n_upd, at_least=True)
-        leaves = _tree.leaves(sched.global_params)
-        if not all(l.is_cuda and bool(torch.isfinite(l).all())
-                   for l in leaves):
-            raise AssertionError(f"{name}: global params left the card or "
-                                 f"are not finite")
+        check_global(name, sched)
         log(f"{name}: sim_time={rep.sim_time:.4f}s aggregations={n_agg} "
             f"client_updates={n_upd} mean_staleness="
             f"{rep.mean_staleness:.4f} wall={wall:.3f}s; launches {got}; "
             f"updates quantised {q_upd:g}, dequantised {dq_upd:g}")
-    if not all(total.values()):
+    never = [k for k, v in total.items() if not v and k != "fedavg_reduce_q8"]
+    if never:
         raise AssertionError(f"a kernel of the event-driven path never "
                              f"launched: {total}")
     return total
@@ -706,6 +953,127 @@ def event_reference_check(device) -> None:
                                      f"/ 127 = {8.0 / 127.0 * top:.3e}")
 
 
+# -- phase 9: FedAvg over qsgd-packed updates ------------------------------
+def q8_phase(card: str, device) -> int:
+    """``fl.aggregator.fedavg_quantized`` on Q8_N distinct full-width
+    ResNet56 updates, quantised on the card into host wire buffers, held
+    against FedAvg of the dequantised trees and against the plain version
+    on the same inputs. Returns the kernel's launches in the call."""
+    model = ResNet(ResNetConfig(), device=device)
+    trees = [model.init(torch.Generator().manual_seed(20 + i))
+             for i in range(Q8_N)]
+    flats = [ops.flatten_pytree(t)[0] for t in trees]
+    _, unflatten = ops.flatten_pytree(trees[0])
+    packed = ops.quantize_flat_batch(flats, block=QSGD_BLOCK)
+    if any(isinstance(p["q"], torch.Tensor) for p in packed):
+        raise AssertionError("quantize_flat_batch did not give host wires")
+    weights = [64.0, 32.0, 128.0, 16.0, 48.0]
+    calls = {}
+    synchronize()
+    zero_launches()
+    with recording(calls):
+        agg, secs = fedavg_quantized(packed, weights, unflatten,
+                                     device=device)
+    synchronize()
+    launched = fr.Q8_LAUNCHES
+    on_card = torch.device(device).type == "cuda"
+    expect("fedavg_quantized", "fedavg_reduce_q8 launches", launched,
+           1 if on_card else 0)
+    expect("fedavg_quantized", "recorded calls",
+           len(calls.get("fedavg_reduce_q8", [])), 1)
+    (args, out), = calls["fedavg_reduce_q8"]
+    if tuple(args[0].shape) != (Q8_N, Q8_T) or args[3] != QSGD_BLOCK:
+        raise AssertionError(f"fedavg_quantized ran the kernel at "
+                             f"{tuple(args[0].shape)} block {args[3]}, phase "
+                             f"3 timed {(Q8_N, Q8_T)} block {QSGD_BLOCK}")
+    err = hold_q8(*args, out)
+    deq = ops.dequantize_flat_batch(packed, device=device)
+    want, _ = fedavg([unflatten(x) for x in deq], weights)
+    leaves = _tree.leaves(agg)
+    if not all(l.device == torch.device(device) for l in leaves):
+        raise AssertionError(f"fedavg_quantized left {device}")
+    worst = 0.0
+    for g, w in zip(leaves, _tree.leaves(want)):
+        worst = max(worst, float((g - w).abs().max()))
+        if not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"fedavg_quantized disagrees with FedAvg of "
+                                 f"the dequantised trees: {worst:.3e}")
+    host_ms = time_host(lambda: fedavg_quantized(packed, weights, unflatten,
+                                                 device=device))
+    log(f"fedavg_quantized, {Q8_N} x ResNet56 qsgd wires: against the plain "
+        f"version {err:.3e}, against fedavg of the dequantised trees "
+        f"{worst:.3e} (bar rtol {RTOL} / atol {ATOL}); the call took "
+        f"{secs * 1e3:.6f} ms, {host_ms:.6f} ms host clock median "
+        f"(synchronised; {card})")
+    return launched
+
+
+# -- phase 10: the Medium tier's model, card against CPU -------------------
+def mobilenet_reference_check(device) -> None:
+    """One full-width MobileNetV3 loss and gradient on the silos' 16x16
+    batch of 16, from the same parameters: the card in f32 with cuDNN's
+    deterministic algorithms (TF32 is off for the whole run) against the
+    CPU in f64. Each leaf is held to 1e-4 of its largest entry, phase 6's
+    bar, except the ``bn_p`` biases: each feeds the next normalisation
+    through a linear 1x1 conv, so their gradient is zero and f32 gives
+    rounding noise there; they are held to zero, within 1e-6 of the
+    model's largest gradient entry. The witness is the CPU's f64 run
+    because the CPU's own f32 gradients of the 1x1 stages drift up to
+    0.13 of a leaf's largest entry from it (ROADMAP.md section C); that
+    drift is printed, not held."""
+    bar, zero_bar = 1e-4, 1e-6
+    model = MobileNetV3(MobileNetConfig(), device=device)
+    params = model.init(torch.Generator().manual_seed(8))
+    silo = make_silo_datasets(1, kind="image", examples_per_silo=64,
+                              num_classes=8, image_size=16, seed=8)[0]
+    batch = {k: torch.as_tensor(v) for k, v in
+             next(silo.batches(16, seed=1)).items()}
+
+    def loss_and_grads(dev, dtype=torch.float32):
+        leaves, treedef = _tree.flatten(params)
+        leaves = [l.detach().to(dev, dtype).requires_grad_(True)
+                  for l in leaves]
+        b = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+             for k, v in batch.items()}
+        loss, _ = MobileNetV3(MobileNetConfig(), device=dev).loss(
+            _tree.unflatten(treedef, leaves), b)
+        return float(loss), [g.detach().cpu().double()
+                             for g in torch.autograd.grad(loss, leaves)]
+
+    with cudnn_deterministic(True):
+        card_loss, card_g = loss_and_grads(device)
+    ref_loss, ref_g = loss_and_grads("cpu", torch.float64)
+    cpu_loss, cpu_g = loss_and_grads("cpu")
+    top = max(float(g.abs().max()) for g in ref_g)
+    zero = zero_grad_leaves(params)
+
+    def per_leaf(got):
+        return max(float((g - w).abs().max())
+                   / max(float(w.abs().max()), 1e-30)
+                   for i, (g, w) in enumerate(zip(got, ref_g))
+                   if i not in zero)
+
+    worst, drift = per_leaf(card_g), per_leaf(cpu_g)
+    worst_zero = max(float(card_g[i].abs().max()) / top for i in zero)
+    log(f"MobileNetV3 full width, card f32 vs CPU f64: loss {card_loss:.7f} "
+        f"vs {ref_loss:.7f}; gradients, per leaf relative to its largest "
+        f"entry, max {worst:.3e} (bar {bar}); the {len(zero)} bn_p bias "
+        f"gradients (zero) at most {worst_zero:.3e} of the largest entry "
+        f"(bar {zero_bar}); the CPU's f32 run, not held: loss "
+        f"{cpu_loss:.7f}, gradients up to {drift:.3e} per leaf")
+    if worst > bar or worst_zero > zero_bar or not math.isclose(
+            card_loss, ref_loss, rel_tol=bar):
+        raise AssertionError("MobileNetV3 on the card disagrees with the CPU")
+
+
+def zero_grad_leaves(params) -> set:
+    """Indices (in leaf order) of the ``bn_p`` biases of every block."""
+    marked = _tree.map(lambda a: 0, params)
+    for blk in marked["blocks"]:
+        blk["bn_p"]["bias"] = 1
+    return {i for i, v in enumerate(_tree.leaves(marked)) if v == 1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -734,13 +1102,15 @@ def main() -> int:
         log(f"phase {what}: {phase_t[-1] - phase_t[-2]:.3f} s wall")
 
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for f in [pool.submit(fr.build), pool.submit(qz.build)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for f in [pool.submit(m.build) for m in (fr, qz, tk)]:
             f.result()
-    log(f"built {', '.join(fr.SOURCES + qz.SOURCES)} for sm_90a")
+    log(f"built {', '.join(fr.SOURCES + qz.SOURCES + tk.SOURCES)} for "
+        f"sm_90a")
     phase_done("2 (build)")
 
-    rec = {"fedavg_reduce": kernel_phase(card), **new_kernels_phase(card)}
+    rec = {"fedavg_reduce": kernel_phase(card), **new_kernels_phase(card),
+           **last_kernels_phase(card)}
     phase_done("3 (kernels against plain)")
     sync_launches, path_err = main_path(device)
     rec["fedavg_reduce"]["max_abs_err"] = max(
@@ -755,16 +1125,25 @@ def main() -> int:
     phase_done("7 (event-driven main path)")
     event_reference_check(device)
     phase_done("8 (event-driven, card against CPU)")
+    q8_launches = q8_phase(card, device)
+    phase_done("9 (fedavg_quantized)")
+    mobilenet_reference_check(device)
+    phase_done("10 (MobileNetV3, card against CPU)")
 
     # launches: over the main paths each kernel is on, each path run with
-    # the counts at 0 (fedavg_reduce: the sync rounds and the event runs)
+    # the counts at 0 (fedavg_reduce: the sync rounds and the event runs;
+    # fedavg_reduce_q8: the fedavg_quantized phase)
     path_launches = dict(event_launches)
     path_launches["fedavg_reduce"] += sync_launches
+    path_launches["fedavg_reduce_q8"] += q8_launches
     sources = {"fedavg_reduce": ("fedavg_reduce.cu", "fedavg_reduce.py:42"),
                "fedavg_accumulate": ("fedavg_reduce.cu",
                                      "fedavg_reduce.py:69"),
                "quantize_blocks": ("quantize.cu", "quantize.py:45"),
-               "dequantize_blocks": ("quantize.cu", "quantize.py:63")}
+               "dequantize_blocks": ("quantize.cu", "quantize.py:63"),
+               "fedavg_reduce_q8": ("fedavg_reduce.cu",
+                                    "fedavg_reduce.py:100"),
+               "topk_rows": ("topk.cu", "topk.py:52")}
     kernels = []
     for k in KERNELS:
         src, ref = sources[k]

@@ -11,17 +11,17 @@ wire.
 
 Payload codecs handle all three payload flavours:
 
-* ``TensorPayload``  -- real compression through the quantize kernels,
-  optional error feedback (the residual lives on the update's device);
+* ``TensorPayload``  -- real compression through the quantize or top-k
+  kernels, optional error feedback (the residual lives on the update's
+  device);
 * ``VirtualPayload`` -- the byte count is scaled by the codec's wire ratio
   (paper-scale runs: identical accounting, no memcpy);
 * ``PackedPayload``  -- already compressed: passed through untouched.
 
-The receiver dequantises on its own device (the ``device`` its Channel
-carries), through the dequantize kernel on a card. ``qsgd`` is ported;
-``topk`` raises ``NotImplementedError`` until its kernel is (slice 3).
-The byte-domain ``ZlibCodec`` / ``ZstdCodec`` are lossless and ride every
-backend.
+The receiver reconstructs on its own device (the ``device`` its Channel
+carries): qsgd through the dequantize kernel on a card, top-k as a
+scatter of the wire's values there. The byte-domain ``ZlibCodec`` /
+``ZstdCodec`` are lossless and ride every backend.
 
 Simulated codec throughputs (``enc_bw`` / ``dec_bw``) are the
 reference's modelling constants of the simulated clock, kept verbatim so
@@ -35,17 +35,16 @@ import numpy as np
 import torch
 
 from repro_torch import _tree
+from repro_torch._device import resolve_device
 from repro_torch.compression.qsgd import (QuantState, qsgd_compress,
                                           qsgd_compress_flat_batch)
+from repro_torch.compression.topk import (topk_compress,
+                                          topk_compress_flat_batch)
 from repro_torch.core.message import (PackedPayload, TensorPayload,
                                       VirtualPayload)
 from repro_torch.kernels import ops
 
 GB = 1024 ** 3
-
-_LATER = ("the '{}' payload codec is not ported to repro_torch yet: it "
-          "arrives with the top-k kernel in slice 3 (ROADMAP.md queue A, "
-          "item 9)")
 
 
 def tree_meta(tree):
@@ -155,9 +154,45 @@ class BaseCodec:
                 for p, i in zip(payloads, infos)]
 
 
-class QsgdCodec(BaseCodec):
+class FlatBatchCodec(BaseCodec):
+    """A payload codec whose core compresses a batch of flat vectors in
+    one kernel call (``_compress_flats``). ``encode_batch`` flattens every
+    TensorPayload of the batch and hands them over together; per-item wire
+    bytes, info and error-feedback transitions are bit-identical to the
+    per-message path (``compress``). Non-tensor payloads fall through to
+    the scalar rules in declaration order."""
+
+    def _compress_flats(self, flats, states):
+        """[flat_i], [state_i|None] -> ([host wire dict_i], [new_state_i])."""
+        raise NotImplementedError
+
+    def _info(self, payload: TensorPayload) -> dict:
+        return {"codec": self.name, "orig_nbytes": payload.nbytes,
+                "tree_meta": tree_meta(payload.tree)}
+
+    def encode_batch(self, payloads, states):
+        tensor_idx = [i for i, p in enumerate(payloads)
+                      if isinstance(p, TensorPayload)]
+        tensor_set = set(tensor_idx)
+        out = [None] * len(payloads)
+        for i, (p, s) in enumerate(zip(payloads, states)):
+            if i not in tensor_set:
+                out[i] = self.compress(p, s)
+        if tensor_idx:
+            flats = [ops.flatten_pytree(payloads[i].tree)[0]
+                     for i in tensor_idx]
+            wires, new_states = self._compress_flats(
+                flats, [states[i] for i in tensor_idx])
+            for i, wire, ns in zip(tensor_idx, wires, new_states):
+                out[i] = (PackedPayload(wire), ns, self._info(payloads[i]))
+        return out
+
+
+class QsgdCodec(FlatBatchCodec):
     """QSGD int8 block quantisation (Alistarh et al. 2017) behind the
-    quantize kernel. Wire = int8 values + one f32 scale per block."""
+    quantize kernel. Wire = int8 values + one f32 scale per block. A batch
+    is flattened into one (rows, block) device buffer and quantised by one
+    kernel launch (kernels/ops.quantize_rows_batch)."""
 
     name = "qsgd"
 
@@ -171,37 +206,13 @@ class QsgdCodec(BaseCodec):
         # f32 -> int8 (1/4) plus a 4-byte scale per `block` elements
         return 0.25 * (1.0 + 4.0 / self.block)
 
-    def _info(self, payload: TensorPayload) -> dict:
-        return {"codec": self.name, "orig_nbytes": payload.nbytes,
-                "tree_meta": tree_meta(payload.tree)}
-
     def _compress_tree(self, payload: TensorPayload, state):
         packed, new_state, _ = qsgd_compress(payload.tree, state,
                                              block=self.block)
         return PackedPayload(packed), new_state, self._info(payload)
 
-    def encode_batch(self, payloads, states):
-        """Fused override: every TensorPayload in the batch is flattened
-        into one (rows, block) device buffer and quantised by one kernel
-        launch (kernels/ops.quantize_rows_batch); per-item wire bytes, info
-        and error-feedback transitions are bit-identical to the
-        per-message path. Non-tensor payloads fall through to the scalar
-        rules in declaration order."""
-        tensor_idx = [i for i, p in enumerate(payloads)
-                      if isinstance(p, TensorPayload)]
-        tensor_set = set(tensor_idx)
-        out = [None] * len(payloads)
-        for i, (p, s) in enumerate(zip(payloads, states)):
-            if i not in tensor_set:
-                out[i] = self.compress(p, s)
-        if tensor_idx:
-            flats = [ops.flatten_pytree(payloads[i].tree)[0]
-                     for i in tensor_idx]
-            packed, new_states = qsgd_compress_flat_batch(
-                flats, [states[i] for i in tensor_idx], block=self.block)
-            for i, pk, ns in zip(tensor_idx, packed, new_states):
-                out[i] = (PackedPayload(pk), ns, self._info(payloads[i]))
-        return out
+    def _compress_flats(self, flats, states):
+        return qsgd_compress_flat_batch(flats, states, block=self.block)
 
     def _decompress_tree(self, payload: PackedPayload, info, device):
         return self.decode_batch([payload], [info], device=device)[0]
@@ -224,6 +235,50 @@ class QsgdCodec(BaseCodec):
                 out[i] = TensorPayload(unflatten_from_meta(
                     flat, infos[i]["tree_meta"]))
         return out
+
+
+def _sparse_on_host(sparse: dict) -> dict:
+    """The wire form of a top-k payload: idx and vals cross to the host."""
+    return {"idx": sparse["idx"].cpu().numpy(),
+            "vals": sparse["vals"].cpu().numpy(), "n": sparse["n"]}
+
+
+class TopkCodec(FlatBatchCodec):
+    """Magnitude top-k sparsification (Wangni et al. 2018) behind the
+    ``topk_rows`` kernel. Wire = int32 indices + f32 values of the k
+    largest-|.| coordinates. A batch runs as one ``topk_rows`` call per
+    (length, k) group (kernels/ops.topk_flat_batch)."""
+
+    name = "topk"
+
+    def __init__(self, k_frac: float = 0.05):
+        self.k_frac = float(k_frac)
+
+    def signature(self) -> str:
+        return f"topk(k{self.k_frac:g})"
+
+    def ratio(self) -> float:
+        return 2.0 * self.k_frac  # (4B idx + 4B val) per kept f32 element
+
+    def _compress_tree(self, payload: TensorPayload, state):
+        sparse, new_state, _ = topk_compress(payload.tree, self.k_frac, state)
+        return (PackedPayload(_sparse_on_host(sparse)), new_state,
+                self._info(payload))
+
+    def _compress_flats(self, flats, states):
+        sparse, new_states = topk_compress_flat_batch(flats, states,
+                                                      k_frac=self.k_frac)
+        return [_sparse_on_host(sp) for sp in sparse], new_states
+
+    def _decompress_tree(self, payload: PackedPayload, info, device):
+        """The scatter runs on ``device`` (the receiving Channel's); the
+        wire's host idx and vals cross to it once each."""
+        p = payload.packed
+        dev = resolve_device(device)
+        vals = torch.tensor(p["vals"], device=dev)  # wires may be read-only
+        flat = torch.zeros(int(p["n"]), dtype=vals.dtype, device=dev)
+        flat[torch.tensor(p["idx"], device=dev).long()] = vals
+        return TensorPayload(unflatten_from_meta(flat, info["tree_meta"]))
 
 
 class ZlibCodec(BaseCodec):
@@ -378,9 +433,9 @@ class ZstdCodec(ZlibCodec):
 
 def make_codec(spec) -> Optional[BaseCodec]:
     """Parse a compression spec: None/'none' -> None, 'qsgd'/'qsgd:128'
-    (block), 'zlib'/'zlib:9' or 'zstd'/'zstd:3' (wire domain, byte-codec
-    level), or a BaseCodec instance. 'topk[:frac]' raises
-    NotImplementedError until its kernel is ported."""
+    (block), 'topk'/'topk:0.1' (kept fraction), 'zlib'/'zlib:9' or
+    'zstd'/'zstd:3' (wire domain, byte-codec level), or a BaseCodec
+    instance."""
     if spec is None or isinstance(spec, BaseCodec):
         return spec
     spec = str(spec).strip().lower()
@@ -390,7 +445,7 @@ def make_codec(spec) -> Optional[BaseCodec]:
     if name == "qsgd":
         return QsgdCodec(block=int(arg)) if arg else QsgdCodec()
     if name == "topk":
-        raise NotImplementedError(_LATER.format(name))
+        return TopkCodec(k_frac=float(arg)) if arg else TopkCodec()
     if name == "zlib":
         return ZlibCodec(level=int(arg)) if arg else ZlibCodec()
     if name == "zstd":
@@ -418,13 +473,12 @@ def split_codecs(compression, wire_codec):
     return codec, wcodec
 
 
-CODECS = {"qsgd": QsgdCodec, "zlib": ZlibCodec, "zstd": ZstdCodec}
+CODECS = {"qsgd": QsgdCodec, "topk": TopkCodec, "zlib": ZlibCodec,
+          "zstd": ZstdCodec}
 
 
 def codec_for(name: str) -> BaseCodec:
     """Default-parameter codec instance for decode-side inversion (all
     decode parameters ride in the wire's stage info, so defaults are
     fine)."""
-    if name == "topk":
-        raise NotImplementedError(_LATER.format(name))
     return CODECS[name]()

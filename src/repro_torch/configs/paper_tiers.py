@@ -66,13 +66,17 @@ TIER_ORDER = ["small", "medium", "big", "large"]
 
 
 def build_tier_model(name: str, device=None):
-    """Returns (model_obj, init_fn(generator)->params). Only the Small
-    tier's ResNet56 is ported so far; the other tiers' models arrive with
-    later slices."""
-    from repro_torch.models.vision import ResNet, ResNetConfig
+    """Returns (model_obj, init_fn(generator)->params). The Small tier's
+    ResNet56 and the Medium tier's MobileNetV3 are ported; the Big and
+    Large tiers' models arrive with later slices."""
+    from repro_torch.models.vision import (MobileNetConfig, MobileNetV3,
+                                           ResNet, ResNetConfig)
 
     if name == "small":
         m = ResNet(ResNetConfig(), device=device)
+        return m, m.init
+    if name == "medium":
+        m = MobileNetV3(MobileNetConfig(), device=device)
         return m, m.init
     if name in TIERS:
         raise NotImplementedError(

@@ -2,6 +2,9 @@
 
 ``fedavg``            — weighted average of client trees, through the
                         ``fedavg_reduce`` kernel.
+``fedavg_quantized``  — aggregates int8 client payloads through the fused
+                        ``fedavg_reduce_q8`` kernel (never materialises
+                        dequantised f32 copies).
 ``StreamingAccumulator`` — O(model) running fold for the fleet-scale hub
                         (one ``acc + eff * update`` per arrival, through the
                         ``fedavg_accumulate`` kernel, instead of buffering
@@ -9,8 +12,6 @@
 ``staleness_weight``  — FedBuff-style polynomial discount for async modes.
 ``merge_global``      — staleness-damped server update (event-driven modes).
 Aggregation compute time is measured for the Fig 5 'aggregation' bars.
-
-``fedavg_quantized`` arrives with the ``fedavg_reduce_q8`` kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +30,19 @@ def fedavg(updates: Sequence, weights):
     Returns (aggregate tree, measured seconds)."""
     t0 = time.perf_counter()
     agg = ops.fedavg_aggregate(updates, weights)
+    synchronize(_tree.leaves(agg)[0])  # the seconds enter the round
+    return agg, time.perf_counter() - t0
+
+
+def fedavg_quantized(packed_list: Sequence[dict], weights, unflatten, *,
+                     device=None):
+    """packed_list: qsgd-packed updates (``ops.quantize_flat_batch``
+    outputs sharing one block and orig_len), host or device; ``device``:
+    where host ones are aggregated (default: the card). Returns
+    (aggregate tree, measured seconds)."""
+    t0 = time.perf_counter()
+    agg = ops.fedavg_aggregate_q8(packed_list, weights, unflatten,
+                                  device=device)
     synchronize(_tree.leaves(agg)[0])  # the seconds enter the round
     return agg, time.perf_counter() - t0
 

@@ -1,10 +1,12 @@
 // Weighted column sum of N stacked client updates, for Hopper (sm_90a),
-// and its streaming form.
+// its streaming form, and its fused form over int8-quantised updates.
 //
 //   fedavg_reduce:     out[t] = sum_i w[i] * x[i, t]
 //                      x: (N, T) f32 or bf16, w: (N,) f32
 //   fedavg_accumulate: out[t] = acc[t] + w * x[t]
 //                      acc, x: (T,) f32, w: f32 scalar
+//   fedavg_reduce_q8:  out[t] = sum_i w[i] * (q[i, t] * s[i, t / block])
+//                      q: (N, T) int8, s: (N, T / block) f32, w: (N,) f32
 //
 // Replaces the Pallas TPU kernel `_fedavg_kernel` launched by
 // `fedavg_reduce` in src/repro/kernels/fedavg_reduce.py. The TPU version
@@ -29,6 +31,20 @@
 // __fadd_rn(acc, __fmul_rn(w, x)), so nvcc cannot contract it into an FMA:
 // that is the order the plain PyTorch version (a multiply, then an add)
 // rounds in, so the two agree bit for bit.
+//
+// fedavg_reduce_q8 replaces `_fedavg_q8_kernel` (launched by
+// `fedavg_reduce_q8` in the same file): the fused form over qsgd-packed
+// updates, out[t] = sum_i w[i] * (q[i, t] * s[i, t / block]), with int8 q
+// (N, T), f32 scales (N, T / block) and any block that divides T. The TPU
+// version tiles T by COL_TILE and needs T padded to it; here, as above,
+// one thread owns one column, the tail is masked, and the dequantised f32
+// copies are never written anywhere: each product lives in a register. Each
+// product is rounded as the reference rounds it, x = q * s and then x * w,
+// and the sum is taken with __fadd_rn in a fixed client order (no FMA
+// contraction, no atomics: deterministic). Bound: device-memory bytes, N*T
+// int8 plus 4*N*T/block of scales read and 4*T written, a quarter of the
+// f32 reduction's traffic; the scale loads of neighbouring threads hit the
+// same word, so they are served from L1.
 //
 // Plain C interface (bound from Python with ctypes): every entry point
 // launches on the given stream and returns cudaGetLastError().
@@ -80,6 +96,25 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = __fadd_rn(acc[i], __fmul_rn(w, x[i]));
 }
 
+__global__ void __launch_bounds__(kThreads)
+    fedavg_reduce_q8_kernel(const int8_t* __restrict__ q,
+                            const float* __restrict__ s,
+                            const float* __restrict__ w,
+                            float* __restrict__ out, int64_t n, int64_t t,
+                            int64_t block) {
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (col >= t) return;  // ragged tail: no padding to a tile multiple
+  const int64_t n_scales = t / block;
+  const int64_t sb = col / block;
+  float acc = 0.0f;
+  for (int64_t i = 0; i < n; ++i) {
+    const float x = __fmul_rn(static_cast<float>(q[i * t + col]),
+                              s[i * n_scales + sb]);
+    acc = __fadd_rn(acc, __fmul_rn(x, w[i]));
+  }
+  out[col] = acc;
+}
+
 }  // namespace
 
 extern "C" int fedavg_reduce_f32(const void* x, const void* w, void* out,
@@ -99,6 +134,17 @@ extern "C" int fedavg_accumulate_f32(const void* acc, const void* x, float w,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(acc), static_cast<const float*>(x), w,
       static_cast<float*>(out), t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fedavg_reduce_q8(const void* q, const void* s, const void* w,
+                                void* out, int64_t n, int64_t t, int64_t block,
+                                void* stream) {
+  const int64_t blocks = (t + kThreads - 1) / kThreads;
+  fedavg_reduce_q8_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(s),
+      static_cast<const float*>(w), static_cast<float*>(out), n, t, block);
   return static_cast<int>(cudaGetLastError());
 }
 

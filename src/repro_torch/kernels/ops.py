@@ -1,10 +1,10 @@
 """Port of ``src/repro/kernels/ops.py``: flat- and tree-level wrappers
 over the kernels, with padding and flattening handled here.
 
-Ported: ``flatten_pytree`` and ``fedavg_aggregate`` (the FedAvg path),
-the quantize / dequantize wrappers of the qsgd codec and
-``fedavg_accumulate_flat`` (the streaming hub). The top-k and q8 wrappers
-arrive with their kernels (ROADMAP.md queue B).
+``flatten_pytree`` and ``fedavg_aggregate`` (the FedAvg path), the
+quantize / dequantize wrappers of the qsgd codec, ``topk_flat_batch``
+(the top-k codec), ``fedavg_accumulate_flat`` (the streaming hub) and
+``fedavg_aggregate_q8`` (FedAvg over qsgd-packed updates).
 
 Padding of the quantize path follows the reference exactly: each item is
 padded to a multiple of ``block * ROW_TILE`` elements, because the padded
@@ -22,6 +22,7 @@ from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.kernels import fedavg_reduce as fr
 from repro_torch.kernels import quantize as qz
+from repro_torch.kernels import topk as tk
 
 
 def flatten_pytree(tree):
@@ -175,6 +176,32 @@ def dequantize_flat_batch(packed_list: Sequence[dict], *,
     return dequantize_rows(q, s, spans, out_dtype)
 
 
+# ---------------------------------------------------------------------------
+# batched top-k selection (the top-k codec's path)
+# ---------------------------------------------------------------------------
+
+def topk_flat_batch(flats: Sequence, *, k_frac: float = 0.05) -> List[dict]:
+    """[x_i] -> [{idx, vals, n}], the top-k sparse wire form, batched.
+
+    Items are grouped by (length, k), k = ``max(1, int(size * k_frac))``
+    (a per-length wire constant, computed as the reference does), and each
+    group is stacked on its device and runs as ONE ``topk_rows`` call. No
+    padding, ever: padding would change k and the selected set. Results lie
+    on the items' device."""
+    xs = [_flat_tensor(x).float() for x in flats]
+    groups: dict = {}
+    for i, x in enumerate(xs):
+        size = x.numel()
+        k = max(1, int(size * k_frac))
+        groups.setdefault((size, k, x.device), []).append(i)
+    out: List[dict] = [None] * len(xs)
+    for (size, k, _), idxs in groups.items():
+        gi, gv = tk.topk_rows(torch.stack([xs[i] for i in idxs]), k)
+        for row, i in enumerate(idxs):
+            out[i] = {"idx": gi[row], "vals": gv[row], "n": size}
+    return out
+
+
 def fedavg_accumulate_flat(acc, x, w) -> torch.Tensor:
     """One streaming fold ``acc + w * x`` over flat (T,) f32 vectors on one
     device, through the ``fedavg_accumulate`` kernel (no padding)."""
@@ -188,13 +215,43 @@ def quantize_pytree(tree, *, block: int = 256):
     return quantize_flat(flat, block=block), unflatten
 
 
+def _normalised(weights) -> np.ndarray:
+    w = np.asarray(weights, np.float32)
+    return w / np.sum(w, dtype=np.float32)
+
+
 def fedavg_aggregate(updates: Sequence, weights):
     """Weighted average of N trees through the ``fedavg_reduce`` kernel.
     Weights are normalised in f32 on the host, as the reference does.
     Returns a tree like updates[0]."""
-    w = np.asarray(weights, np.float32)
-    w = w / np.sum(w, dtype=np.float32)
+    w = _normalised(weights)
     flats, unflatten = zip(*[flatten_pytree(u) for u in updates])
     stacked = torch.stack(flats)  # (N, T); the kernel masks T's tail
     agg = fr.fedavg_reduce(stacked, torch.from_numpy(w).to(stacked.device))
     return unflatten[0](agg)
+
+
+def fedavg_aggregate_q8(packed_list: Sequence[dict], weights, unflatten, *,
+                        device=None):
+    """FedAvg over qsgd-packed updates (outputs of ``quantize_flat_batch``
+    sharing one block and orig_len) through the ``fedavg_reduce_q8``
+    kernel, which never materialises dequantised copies. Weights are
+    normalised in f32 on the host. Host (wire) q/scales are stacked on the
+    host and cross to ``device`` (default: the card) once; device ones stay
+    where they are. The reference pads T to COL_TILE; the kernel masks its
+    tail instead, and the result is cut to orig_len and unflattened."""
+    w = _normalised(weights)
+    dev = _target(packed_list, device)
+    block = int(packed_list[0]["block"])
+    orig = int(packed_list[0]["orig_len"])
+
+    def stack(key):
+        parts = [p[key] for p in packed_list]
+        if all(isinstance(a, torch.Tensor) for a in parts):
+            return torch.stack([a.reshape(-1) for a in parts]).to(dev)
+        host = np.stack([np.asarray(a).reshape(-1) for a in parts])
+        return torch.from_numpy(host).to(dev)
+
+    agg = fr.fedavg_reduce_q8(stack("q"), stack("scales"),
+                              torch.from_numpy(w).to(dev), block)
+    return unflatten(agg[:orig])

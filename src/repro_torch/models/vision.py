@@ -1,5 +1,5 @@
-"""Port of ``src/repro/models/vision.py``, limited to the Small tier's
-ResNet56; MobileNetV3 and ViT arrive with later slices.
+"""Port of ``src/repro/models/vision.py``: the Small tier's ResNet56 and
+the Medium tier's MobileNetV3; ViT arrives with a later slice.
 
 Parameters are a plain nested dict/list of tensors that mirrors the JAX
 tree key for key and shape for shape, so wire bytes and the flat FedAvg
@@ -131,3 +131,97 @@ class ResNet:
         return L.cross_entropy(logits[:, None, :], batch["labels"][:, None],
                                z_loss=0.0), {}
 
+
+def hard_swish(x):
+    """``jax.nn.hard_swish``: x * hard_sigmoid(x), hard_sigmoid(x) =
+    relu6(x + 3) / 6, rounded in that order."""
+    return x * (F.relu6(x + 3.0) / 6.0)
+
+
+# ---------------------------------------------------------------------------
+# MobileNetV3-style (inverted residuals + SE), Medium tier
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MobileNetConfig:
+    name: str = "mobilenetv3"
+    # (expand, out_channels, stride, use_se) per block
+    blocks: tuple = ((1, 16, 1, False), (4, 24, 2, False), (3, 24, 1, False),
+                     (3, 40, 2, True), (3, 40, 1, True), (3, 40, 1, True),
+                     (6, 80, 2, False), (2.5, 80, 1, False), (2.3, 80, 1, False),
+                     (6, 112, 1, True), (6, 112, 1, True),
+                     (6, 160, 2, True), (6, 160, 1, True), (6, 160, 1, True))
+    stem: int = 16
+    head: int = 960
+    classifier: int = 1280
+    num_classes: int = 203
+    image_size: int = 64
+
+
+class MobileNetV3:
+    def __init__(self, cfg: MobileNetConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def init(self, generator: torch.Generator):
+        """Random params drawn on the host from ``generator`` (a CPU
+        ``torch.Generator``), then moved to the model's device. The tree is
+        the reference's key for key: ``se_down``/``se_up`` only in SE
+        blocks, depthwise weights HWIO (3, 3, 1, c_mid)."""
+        cfg = self.cfg
+        g = generator
+        p = {"stem": {"w": conv_init(g, 3, 3, cfg.stem),
+                      "bn": bn_init(cfg.stem)}}
+        c_in = cfg.stem
+        blocks = []
+        for (exp, out, stride, se) in cfg.blocks:
+            c_mid = int(c_in * exp + 0.5)
+            blk = {"expand": conv_init(g, 1, c_in, c_mid),
+                   "bn_e": bn_init(c_mid),
+                   "dw": conv_init(g, 3, c_mid, c_mid, groups=c_mid),
+                   "bn_d": bn_init(c_mid),
+                   "project": conv_init(g, 1, c_mid, out),
+                   "bn_p": bn_init(out)}
+            if se:
+                c_se = max(c_mid // 4, 8)
+                blk["se_down"] = conv_init(g, 1, c_mid, c_se)
+                blk["se_up"] = conv_init(g, 1, c_se, c_mid)
+            blocks.append(blk)
+            c_in = out
+        p["blocks"] = blocks
+        p["head"] = {
+            "w": conv_init(g, 1, c_in, cfg.head),
+            "bn": bn_init(cfg.head),
+            "fc1": torch.randn((cfg.head, cfg.classifier), generator=g) * 0.01,
+            "fc2": torch.randn((cfg.classifier, cfg.num_classes),
+                               generator=g) * 0.01,
+            "b": torch.zeros((cfg.num_classes,), dtype=torch.float32)}
+        return _tree.map(lambda a: a.to(self.device), p)
+
+    def forward(self, p, images):
+        x = hard_swish(norm_apply(p["stem"]["bn"],
+                                  conv(images, p["stem"]["w"], 2)))
+        for (_, _, stride, _), blk in zip(self.cfg.blocks, p["blocks"]):
+            h = hard_swish(norm_apply(blk["bn_e"], conv(x, blk["expand"])))
+            c_mid = h.shape[-1]
+            # depthwise: HWIO (3, 3, 1, c_mid) -> OIHW (c_mid, 1, 3, 3)
+            h = hard_swish(norm_apply(
+                blk["bn_d"], conv(h, blk["dw"], stride, groups=c_mid)))
+            if "se_down" in blk:
+                s = torch.mean(h, dim=(1, 2), keepdim=True)
+                s = torch.relu(conv(s, blk["se_down"]))
+                s = torch.sigmoid(conv(s, blk["se_up"]))
+                h = h * s
+            h = norm_apply(blk["bn_p"], conv(h, blk["project"]))
+            if stride == 1 and h.shape[-1] == x.shape[-1]:
+                h = h + x
+            x = h
+        x = hard_swish(norm_apply(p["head"]["bn"], conv(x, p["head"]["w"])))
+        x = torch.mean(x, dim=(1, 2))
+        x = hard_swish(x @ p["head"]["fc1"])
+        return x @ p["head"]["fc2"] + p["head"]["b"]
+
+    def loss(self, p, batch):
+        logits = self.forward(p, batch["images"])
+        return L.cross_entropy(logits[:, None, :], batch["labels"][:, None],
+                               z_loss=0.0), {}

@@ -12,7 +12,12 @@ Tolerances:
   operations on the same card, so int8 and scales are bit-exact;
 * ``dequantize_blocks``: rtol 1e-6 (one rounded product each);
 * ``fedavg_accumulate``: atol 1e-6 (the reference's bar; both round the
-  product and then the sum).
+  product and then the sum);
+* ``topk_rows``: idx equal and vals equal bit for bit (compared as int32
+  views: ``torch.equal`` calls -0.0 equal to +0.0), ties and signed zeros
+  included;
+* ``fedavg_reduce_q8``: rtol 1e-4 / atol 1e-5, the reference's bar (both
+  sum f32 products, in different orders).
 """
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ import torch
 from repro_torch.kernels import fedavg_reduce as fr
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantize as qz
+from repro_torch.kernels import topk as tk
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +147,115 @@ def test_qsgd_flat_batch_on_card_matches_cpu(cuda):
         assert a["scales"].tobytes() == b["scales"].tobytes()
     back = ops.dequantize_flat_batch(got, device=cuda)
     assert all(x.is_cuda for x in back)
+
+
+def _topk_rows(b, t, dtype, seed):
+    """(b, t) rows with |value| ties of both signs, +-0.0 and, for b > 1,
+    an all-zero row (signed zeros only)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((b, t), generator=g)
+    if t >= 8:
+        x[:, 1] = -x[:, 0]
+        x[:, 3] = x[:, 2]
+        x[:, t // 2] = x[:, 0]
+        x[:, -1] = -0.0
+        x[:, -2] = 0.0
+    if t >= 64:  # a run of equal magnitudes, both signs
+        x[:, 8:40] = 0.125
+        x[:, 20:30] *= -1
+    if b > 1:
+        x[1] = 0.0
+        x[1, ::3] = -0.0
+    return x.to(dtype)
+
+
+def _same_topk(got, want):
+    (gi, gv), (wi, wv) = got, want
+    assert gi.dtype == torch.int32 and gv.dtype == torch.float32
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+
+
+# (1, 4_375_723), k = 218_786: one Medium-tier (MobileNetV3) update at
+# topk:0.05; (1, 868_123), k = 43_406: one Small-tier (ResNet56) update
+@pytest.mark.parametrize("b,t,frac", [
+    (1, 4_375_723, 0.05), (1, 868_123, 0.05), (3, 868_123, 0.05),
+    (1, 1, 0.05), (3, 8, 0.05), (3, 1000, 0.05), (1, 4099, 0.05),
+    (3, 65_537, 0.05), (3, 65_537, 1.0), (1, 1000, 1.0), (3, 4099, 0.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_matches_plain(cuda, b, t, frac, dtype):
+    k = max(1, int(t * frac))
+    x = _topk_rows(b, t, dtype, seed=b * 31 + t).to(cuda)
+    before = tk.LAUNCHES
+    got = tk.topk_rows(x, k)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 1
+    _same_topk(got, tk.topk_rows_plain(x, k))
+
+
+def test_topk_all_equal_row(cuda):
+    """Every key equal: the first k indices, in order."""
+    x = torch.full((2, 10_000), -3.0, device=cuda)
+    idx, vals = tk.topk_rows(x, 777)
+    assert torch.equal(idx[0].long().cpu(), torch.arange(777))
+    assert bool((vals == -3.0).all())
+
+
+def test_topk_flat_batch_on_card_matches_cpu(cuda):
+    """The codec's grouping on the card gives the CPU's payloads."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    flats = [torch.randn(n, generator=g) for n in (100, 5000, 5000, 64)]
+    want = ops.topk_flat_batch(flats, k_frac=0.05)
+    got = ops.topk_flat_batch([f.to(cuda) for f in flats], k_frac=0.05)
+    for a, b in zip(got, want):
+        assert a["n"] == b["n"] and a["idx"].is_cuda
+        assert torch.equal(a["idx"].cpu(), b["idx"])
+        assert torch.equal(a["vals"].cpu().view(torch.int32),
+                           b["vals"].view(torch.int32))
+
+
+def test_topk_rejects_wrong_dtype(cuda):
+    with pytest.raises(TypeError):
+        tk.topk_rows(torch.zeros((2, 8), dtype=torch.float16, device=cuda), 2)
+
+
+# (5, 868_352), block 256: five ResNet56 updates, each 868,123 parameters
+# padded to whole (8, 256) tiles by the qsgd wire
+@pytest.mark.parametrize("n,t,block", [(5, 868_352, 256), (1, 256, 256),
+                                       (3, 2048 + 256, 256), (5, 256, 128),
+                                       (3, 2048 + 256, 128),
+                                       (1, 868_352, 128)])
+def test_q8_matches_plain(cuda, n, t, block):
+    g = torch.Generator(device="cpu").manual_seed(n * 7 + t + block)
+    q = torch.randint(-127, 128, (n, t), generator=g,
+                      dtype=torch.int8).to(cuda)
+    s = (torch.rand((n, t // block), generator=g) * 1e-2).to(cuda)
+    w = torch.rand((n,), generator=g).to(cuda)
+    w = w / w.sum()
+    before = fr.Q8_LAUNCHES
+    out = fr.fedavg_reduce_q8(q, s, w, block)
+    torch.cuda.synchronize()
+    assert fr.Q8_LAUNCHES == before + 1
+    assert out.dtype == torch.float32 and out.shape == (t,)
+    np.testing.assert_allclose(
+        out.cpu().numpy(),
+        fr.fedavg_reduce_q8_plain(q, s, w, block).cpu().numpy(),
+        rtol=1e-4, atol=1e-5)
+
+
+def test_fedavg_quantized_on_card_matches_cpu(cuda):
+    from repro_torch.fl.aggregator import fedavg_quantized
+    g = torch.Generator(device="cpu").manual_seed(6)
+    trees = [{"w": torch.randn((37, 50), generator=g),
+              "b": torch.randn((900,), generator=g)} for _ in range(3)]
+    flats = [ops.flatten_pytree(t)[0] for t in trees]
+    packed = ops.quantize_flat_batch(flats)
+    _, unflatten = ops.flatten_pytree(trees[0])
+    want, _ = fedavg_quantized(packed, [1, 2, 3], unflatten, device="cpu")
+    _, cuda_unflatten = ops.flatten_pytree(
+        {k: v.to(cuda) for k, v in trees[0].items()})
+    got, _ = fedavg_quantized(packed, [1, 2, 3], cuda_unflatten)
+    for k in want:
+        assert got[k].is_cuda
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(),
+                                   rtol=1e-4, atol=1e-5)

@@ -151,6 +151,20 @@ VIRTUAL_CASES = {
         deployment=dict(backend="grpc+s3", env_name="geo_distributed",
                         n=14),
         max_agg=3),
+    # the top-k codec: its wire ratio (2 * k_frac) sets every upload
+    "semisync-topk-loss-chunks": dict(
+        mode="semisync",
+        strategy=dict(quorum_fraction=0.67, round_deadline_s=600.0),
+        deployment=dict(backend="grpc", env_name="geo_distributed",
+                        n=3, compression="topk:0.05", link_loss=0.05,
+                        chunk_mb=0.25),
+        max_agg=4),
+    "fedbuff-topk-churn-hub": dict(
+        mode="fedbuff", strategy=dict(buffer_k=3, staleness_exponent=0.5),
+        deployment=dict(backend="grpc", env_name="geo_distributed", n=7,
+                        compression="topk", straggle={"client2": 2.0}),
+        max_agg=5, streaming_hub=True,
+        availability="client4:leave@3,join@12"),
 }
 
 
@@ -314,6 +328,12 @@ def test_live_hier_qsgd_wan_hop_matches_reference(depth):
      "--rounds", "1", "--streaming-hub", "--cohort-k", "2",
      "--availability-trace", "client1:leave@500", "--link-loss", "0.05",
      "--region-quorum", "0.5"],
+    # the Medium tier's scenario as written (the CLI builds the reduced
+    # model, as build_deployment's reduced=True does), and top-k on the
+    # relay WAN hop
+    ["--scenario", "examples/scenarios/hospitals_geo3.json", "--rounds", "2"],
+    ["--mode", "hier", "--compression", "topk:0.1", "--clients", "4",
+     "--rounds", "1"],
 ])
 def test_cli_runs_event_driven_modes_on_cpu(argv, capsys):
     root = Path(__file__).resolve().parents[1]
@@ -346,3 +366,30 @@ def test_cli_scenario_runs_on_the_card_by_default(capsys):
                        "--clients", "3", "--rounds", "1"])
     assert e.value.code != 0
     assert "device='cpu'" in capsys.readouterr().err
+
+
+def test_hospitals_geo3_resolves_like_the_reference():
+    """The scenario file resolves to the same spec and flat config in both
+    packages, and its deployment routes the top-k codec onto the clients'
+    update path only (semisync), never the server's broadcast."""
+    from repro.launch import fl_train as jfl_train
+    root = Path(__file__).resolve().parents[1]
+    argv = ["--scenario", str(root / "examples/scenarios/hospitals_geo3.json")]
+    ap, jap = fl_train._parser(), jfl_train._parser()
+    sc = fl_train.resolve_scenario(ap.parse_args(argv), ap)
+    jsc = jfl_train.resolve_scenario(jap.parse_args(argv), jap)
+    assert sc.to_dict() == jsc.to_dict()
+    assert dataclasses.asdict(sc.fl_config()) == \
+        dataclasses.asdict(jsc.fl_config())
+    assert (sc.fleet.tier, sc.channel.compression, sc.strategy.mode) == \
+        ("medium", "topk:0.05", "semisync")
+    server, _, _, _ = fl_train.build_deployment(
+        sc.fl_config(), tier=sc.fleet.tier, local_steps=1, scenario=sc,
+        device="cpu")
+    codecs = {c.client_id: [type(st.codec).__name__
+                            for st in c.backend.channel.stages
+                            if hasattr(st, "codec")]
+              for c in server.clients}
+    assert all("TopkCodec" in v for v in codecs.values()), codecs
+    assert not any(type(getattr(st, "codec", None)).__name__ == "TopkCodec"
+                   for st in server.backend.channel.stages)

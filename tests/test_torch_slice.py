@@ -161,6 +161,9 @@ def test_cli_refuses_unported_runners(argv, capsys):
 
 
 @pytest.mark.parametrize("spec", ["topk", "topk:0.1"])
-def test_payload_codecs_refuse_until_ported(spec):
-    with pytest.raises(NotImplementedError):
-        make_codec(spec)
+def test_payload_codecs_build_like_the_reference(spec):
+    from repro.compression.stages import make_codec as jmake_codec
+    codec, want = make_codec(spec), jmake_codec(spec)
+    assert codec.name == want.name == "topk"
+    assert codec.signature() == want.signature()
+    assert codec.ratio() == want.ratio()
