@@ -24,13 +24,19 @@
 //
 // fedavg_accumulate replaces `_accum_kernel` (launched by `fedavg_accumulate`
 // in the same file): the fleet-scale hub folds one weighted update into a
-// running sum per arrival. The TPU version pads T to COL_TILE; here one
-// thread owns one element, the tail is masked and nothing is padded. It is
-// bound by bytes (read acc and x, write out: 12 bytes and 2 flops per
-// element). The arithmetic is written as two rounded operations,
-// __fadd_rn(acc, __fmul_rn(w, x)), so nvcc cannot contract it into an FMA:
-// that is the order the plain PyTorch version (a multiply, then an add)
-// rounds in, so the two agree bit for bit.
+// running sum per arrival. The TPU version pads T to COL_TILE; here nothing
+// is padded. It is bound by bytes (read acc and x, write out: 12 bytes and
+// 2 flops per element; 10.4 MB at the Small tier's T, a 3.1 us bound).
+// Each thread moves 16 bytes of each input per step (float4), in
+// 128-thread blocks, at most kAccBlocksPerSm of them per SM, striding over
+// the vector; on the H100 that ran faster than several float4s per thread
+// in fewer blocks (PERF.md). The T % 4 tail is done by the first
+// threads of the same launch, and a view that is not 16-byte aligned
+// (acc, x or out) takes the same loop on single floats. The arithmetic is
+// written as two rounded operations, __fadd_rn(acc, __fmul_rn(w, x)), so
+// nvcc cannot contract it into an FMA: that is the order the plain PyTorch
+// version (a multiply, then an add) rounds in, so the two agree bit for
+// bit.
 //
 // fedavg_reduce_q8 replaces `_fedavg_q8_kernel` (launched by
 // `fedavg_reduce_q8` in the same file): the fused form over qsgd-packed
@@ -87,13 +93,56 @@ int launch(const void* x, const void* w, void* out, int64_t n, int64_t t,
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kAccThreads = 128;
+constexpr int kAccBlocksPerSm = 16;  // 2,048 threads: a full SM
+
+__device__ __forceinline__ float axpy(float a, float x, float w) {
+  return __fadd_rn(a, __fmul_rn(w, x));
+}
+
+__device__ __forceinline__ float4 axpy(float4 a, float4 x, float w) {
+  return make_float4(axpy(a.x, x.x, w), axpy(a.y, x.y, w),
+                     axpy(a.z, x.z, w), axpy(a.w, x.w, w));
+}
+
+// out[i] = acc[i] + w * x[i] for i < n, over elements of type V (float4 or
+// float), grid-strided; each input is read once, so the loads and the
+// store are marked streaming (evict first).
+template <typename V>
+__device__ __forceinline__ void accumulate_span(const V* __restrict__ acc,
+                                                const V* __restrict__ x,
+                                                float w, V* __restrict__ out,
+                                                int64_t n, int64_t first,
+                                                int64_t stride) {
+  for (int64_t i = first; i < n; i += stride) {
+    __stcs(out + i, axpy(__ldcs(acc + i), __ldcs(x + i), w));
+  }
+}
+
+__global__ void __launch_bounds__(kAccThreads)
     fedavg_accumulate_kernel(const float* __restrict__ acc,
                              const float* __restrict__ x, float w,
-                             float* __restrict__ out, int64_t t) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= t) return;  // ragged tail: no padding to a tile multiple
-  out[i] = __fadd_rn(acc[i], __fmul_rn(w, x[i]));
+                             float* __restrict__ out, int64_t t, int vec) {
+  const int64_t first =
+      static_cast<int64_t>(blockIdx.x) * kAccThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kAccThreads;
+  if (!vec) {  // a misaligned view: the same loop on single floats
+    accumulate_span(acc, x, w, out, t, first, stride);
+    return;
+  }
+  const int64_t n4 = t / 4;
+  accumulate_span(reinterpret_cast<const float4*>(acc),
+                  reinterpret_cast<const float4*>(x), w,
+                  reinterpret_cast<float4*>(out), n4, first, stride);
+  const int64_t j = 4 * n4 + first;  // the ragged tail: T % 4 elements
+  if (j < t) out[j] = axpy(acc[j], x[j], w);
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -129,11 +178,19 @@ extern "C" int fedavg_reduce_bf16(const void* x, const void* w, void* out,
 
 extern "C" int fedavg_accumulate_f32(const void* acc, const void* x, float w,
                                      void* out, int64_t t, void* stream) {
-  const int64_t blocks = (t + kThreads - 1) / kThreads;
-  fedavg_accumulate_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(acc) |
+                         reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(out);
+  const int vec = (addr % sizeof(float4)) == 0;
+  const int64_t items = vec ? t / 4 : t;
+  int64_t blocks = (items + kAccThreads - 1) / kAccThreads;
+  const int64_t cap = int64_t{sm_count()} * kAccBlocksPerSm;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;  // T < 4: the tail threads of one block
+  fedavg_accumulate_kernel<<<static_cast<unsigned int>(blocks), kAccThreads,
+                             0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(acc), static_cast<const float*>(x), w,
-      static_cast<float*>(out), t);
+      static_cast<float*>(out), t, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

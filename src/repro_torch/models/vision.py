@@ -7,7 +7,8 @@ vector match the reference. Layouts follow the reference at the public
 functions: conv weights are HWIO in the tree and activations are NHWC;
 ``conv`` permutes to PyTorch's NCHW/OIHW internally (for an NHWC
 contiguous tensor that permute is PyTorch's channels-last format, so no
-copy is made).
+copy is made, but for the depthwise convs, which take an NCHW-contiguous
+copy).
 """
 from __future__ import annotations
 
@@ -46,6 +47,11 @@ def conv(x, w, stride=1, groups=1):
     ph = _same_pad(x.shape[1], kh, stride)
     pw = _same_pad(x.shape[2], kw, stride)
     xc = x.permute(0, 3, 1, 2)
+    if groups > 1:
+        # depthwise: NCHW-contiguous in and out, which sets the order the
+        # next norm's statistics sum in (PERF.md: MobileNetV3's f32
+        # gradients on the CPU)
+        xc = xc.contiguous()
     if any(ph) or any(pw):
         xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
     y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, groups=groups)

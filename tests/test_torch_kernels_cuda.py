@@ -11,8 +11,8 @@ Tolerances:
 * ``quantize_blocks``: the kernel and the plain version take the same IEEE
   operations on the same card, so int8 and scales are bit-exact;
 * ``dequantize_blocks``: rtol 1e-6 (one rounded product each);
-* ``fedavg_accumulate``: atol 1e-6 (the reference's bar; both round the
-  product and then the sum);
+* ``fedavg_accumulate``: bit-exact, ragged and misaligned inputs included
+  (both round the product and then the sum, on the same card);
 * ``topk_rows``: idx equal and vals equal bit for bit (compared as int32
   views: ``torch.equal`` calls -0.0 equal to +0.0), ties and signed zeros
   included;
@@ -122,18 +122,23 @@ def test_dequantize_matches_plain(cuda, rows, block, dtype):
         rtol=1e-6)
 
 
-@pytest.mark.parametrize("t", [868_123, 1, 255, 4097])
-def test_accumulate_matches_plain(cuda, t):
-    g = torch.Generator(device="cpu").manual_seed(t)
-    acc = torch.randn(t, generator=g).to(cuda)
-    x = torch.randn(t, generator=g).to(cuda)
+# T < 4 (the tail alone), T % 4 != 0, and views offset by one element
+# (not 16-byte aligned: the kernel's scalar loop)
+@pytest.mark.parametrize("t,acc_off,x_off", [
+    (868_123, 0, 0), (1, 0, 0), (255, 0, 0), (4097, 0, 0), (2, 0, 0),
+    (3, 0, 0), (8, 0, 0), (1001, 0, 0), (868_123, 1, 1), (868_123, 0, 1),
+    (1001, 1, 0), (3, 1, 1)])
+def test_accumulate_matches_plain(cuda, t, acc_off, x_off):
+    g = torch.Generator(device="cpu").manual_seed(t + 7 * acc_off + x_off)
+    acc = torch.randn(t + acc_off, generator=g).to(cuda)[acc_off:]
+    x = torch.randn(t + x_off, generator=g).to(cuda)[x_off:]
     before = fr.ACCUMULATE_LAUNCHES
     out = fr.fedavg_accumulate(acc, x, 0.37)
     torch.cuda.synchronize()
     assert fr.ACCUMULATE_LAUNCHES == before + 1
-    np.testing.assert_allclose(
-        out.cpu().numpy(),
-        fr.fedavg_accumulate_plain(acc, x, 0.37).cpu().numpy(), atol=1e-6)
+    want = fr.fedavg_accumulate_plain(acc, x, 0.37)
+    assert out.shape == want.shape == (t,)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 def test_qsgd_flat_batch_on_card_matches_cpu(cuda):
@@ -199,6 +204,44 @@ def test_topk_all_equal_row(cuda):
     idx, vals = tk.topk_rows(x, 777)
     assert torch.equal(idx[0].long().cpu(), torch.arange(777))
     assert bool((vals == -3.0).all())
+
+
+def _topk_sort_case(case, dtype):
+    """Inputs that drive the multi-tile sort of the survivors: (x, k)."""
+    g = torch.Generator(device="cpu").manual_seed(len(case))
+    if case == "many-tiles":  # k not a multiple of the sort's tile
+        x, k = torch.randn((1, 200_003), generator=g), 30_001
+    elif case == "k=T":
+        x, k = torch.randn((1, 65_537), generator=g), 65_537
+    elif case.startswith("all-equal"):  # ties across every tile boundary
+        x = torch.full((1, 1_000_000), 0.75)
+        x[0, 1::2] = -0.75
+        k = 1_000_000 if case.endswith("k=T") else 300_001
+    elif case == "signed-zeros":  # the threshold is 0: +-0.0 tie
+        x = torch.zeros((1, 50_000))
+        x[0, 1::2] = -0.0
+        x[0, ::97] = torch.randn(516, generator=g)
+        k = 20_000
+    else:  # "3-rows": three rows with different thresholds
+        x = torch.randn((3, 100_000), generator=g)
+        x[1] = (x[1] * 1e-3 * 64).round() / 64  # many ties
+        x[2, ::2] = 0.0
+        x[2, 1::4] = -0.0
+        k = 40_000
+    return x.to(dtype), k
+
+
+@pytest.mark.parametrize("case", ["many-tiles", "k=T", "all-equal",
+                                  "all-equal k=T", "signed-zeros", "3-rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_sort_cases(cuda, case, dtype):
+    x, k = _topk_sort_case(case, dtype)
+    x = x.to(cuda)
+    before = tk.LAUNCHES
+    got = tk.topk_rows(x, k)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 1
+    _same_topk(got, tk.topk_rows_plain(x, k))
 
 
 def test_topk_flat_batch_on_card_matches_cpu(cuda):
