@@ -43,10 +43,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    from the same parameters and batch.
 
 Phase 3 also holds ``quantize_blocks``, ``dequantize_blocks`` and
-``fedavg_accumulate`` against their plain versions (ragged shapes, views
-off 16-byte alignment for the accumulate, then the main path's (3392,
-256) and T = 868,123) and times them, and times the host-side flat
-wrappers around them on one ResNet56 update; then ``topk_rows`` (edge
+``fedavg_accumulate`` against their plain versions (ragged shapes; blocks
+on and off the quantize pair's fast path; rows for each of the quantize
+pair's subnormal rules, half-way ties and subnormal scales; views off
+16-byte alignment; then the main path's (3392, 256) and T = 868,123, the
+quantize pair also off 16-byte alignment) and times them beside the
+floors of this harness (an empty kernel launch; the casts that move the
+quantize pair's bytes), and times the host-side flat wrappers around
+them on one ResNet56 update; then ``topk_rows`` (edge
 shapes with ties and signed zeros, k over many sort tiles, k = T,
 all-equal rows of 1,000,000, then one MobileNetV3 and one ResNet56
 update at ``topk:0.05``, each broken down by kernel) and
@@ -358,22 +362,80 @@ HOLD = {"fedavg_reduce": lambda args, out: hold_against_plain(*args, out),
         "fedavg_accumulate": lambda args, out: hold_accumulate(*args, out)}
 
 
+def empty_launch() -> None:
+    """One launch of an empty kernel: the floor every timed call pays."""
+    rc = qz.build().quantize_empty_launch(
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"empty kernel launch failed ({rc})")
+
+
+def off_alignment(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` one element into a buffer: off 16-byte
+    alignment, so the quantize kernels take their general path."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].reshape(x.shape)
+
+
+def quantize_edge_rows(block: int, g) -> torch.Tensor:
+    """(9, block) f32 on the card: a row per subnormal rule of
+    ``kernels/quantize.py`` (scale flushed to 0; subnormal entries under a
+    normal scale; scale exactly FLT_MIN; scale below 2**-128, where
+    1 / scale would overflow; subnormals only; a normal row with subnormal
+    entries; signed zeros), then x * inv exactly k + 0.5 at scales 1 and
+    2 (ties round to even)."""
+    fmin = qz.FLT_MIN
+    x = torch.randn((9, block), generator=g, device="cuda")
+    x[0] = torch.linspace(-1e-36, 1e-36, block, device="cuda")
+    x[1] *= 1e-38
+    x[1, 0] = 1.5e-36
+    x[2] = torch.tensor([fmin, -fmin, fmin / 2, -fmin / 2, 0.0],
+                        device="cuda")[torch.arange(block, device="cuda") % 5]
+    x[2, 0] = 127 * fmin
+    x[3] = x[3].clamp(-3, 3) * 1e-37
+    x[3, ::7] = 0.0
+    x[4] *= 1e-40
+    x[5, ::5] *= 1e-39
+    x[6] = -0.0
+    k = torch.randint(-126, 126, (2, block), generator=g, device="cuda")
+    x[7:] = (k + 0.5) * torch.tensor([[1.0], [2.0]], device="cuda")
+    x[7:, 0] = torch.tensor([127.0, 254.0], device="cuda")
+    return x
+
+
+SCALE_EDGES = torch.tensor([1e-40, qz.FLT_MIN, -1e-40, 0.0, -0.0, 2e-38])
+
+
 def new_kernels_phase(card: str) -> dict:
     """Phase 3 for the event-driven path's kernels: ragged and edge
     shapes, then the main path's shapes, held and timed."""
     g = torch.Generator(device="cuda").manual_seed(12)
     rec = {}
     qerr = derr = aerr = 0.0
-    for rows, block in ((8, 256), (24, 128), (5, 100), (1, 1), (17, 256)):
+    paths = set()
+    edges = SCALE_EDGES.cuda()
+    for rows, block in ((8, 256), (24, 128), (5, 100), (1, 1), (17, 256),
+                        (8, 512), (8, 1024), (4, 2048), (16, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             x = (torch.randn((rows, block), generator=g, device="cuda")
                  * 3).to(dtype)
             x[rows // 2] = 0  # an all-zero row: scale 0, q 0
+            edge = quantize_edge_rows(block, g).to(dtype)
+            for xx in (x, edge, off_alignment(edge)):
+                paths.add(qz.fast_path(xx, dtype))
+                qerr = max(qerr, hold_quantize(xx, qz.quantize_blocks(xx)))
             q, s = qz.quantize_blocks(x)
-            qerr = max(qerr, hold_quantize(x, (q, s)))
+            # every 2nd scale subnormal, FLT_MIN or a signed zero
+            s[::2] = edges[torch.arange(0, rows, 2, device="cuda")
+                           % len(edges), None]
             for out_dtype in (torch.float32, torch.bfloat16):
-                derr = max(derr, hold_dequantize(
-                    q, s, out_dtype, qz.dequantize_blocks(q, s, out_dtype)))
+                for qq in (q, off_alignment(q)):
+                    derr = max(derr, hold_dequantize(
+                        qq, s, out_dtype,
+                        qz.dequantize_blocks(qq, s, out_dtype)))
+    if paths != {True, False}:
+        raise AssertionError(f"quantize edge cases took paths {paths}")
     for t in (1, 2, 3, 8, 255, 3001, 4097):  # T < 4, T % 4 != 0
         acc = torch.randn(t, generator=g, device="cuda")
         x = torch.randn(t, generator=g, device="cuda")
@@ -439,6 +501,31 @@ def new_kernels_phase(card: str) -> dict:
                      "ms": kernel_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": library_ms}
+
+    # the quantize pair's general path at the main shape (inputs off
+    # 16-byte alignment), then what any pass of these bytes costs here
+    xo, qo = off_alignment(x), off_alignment(q)
+    if qz.fast_path(xo, torch.float32) or qz.fast_path(qo, torch.float32):
+        raise AssertionError("an input off 16-byte alignment would take the "
+                             "fast path")
+    general = {
+        "quantize_blocks": (hold_quantize(xo, qz.quantize_blocks(xo)),
+                            lambda: qz.quantize_blocks(xo)),
+        "dequantize_blocks": (hold_dequantize(qo, s, torch.float32,
+                                              qz.dequantize_blocks(qo, s)),
+                              lambda: qz.dequantize_blocks(qo, s))}
+    for name, (err, fn) in general.items():
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+        log(f"{name} main shape off 16-byte alignment (general path): max "
+            f"abs err {err:.3e} kernel_ms={time_cold(fn):.6f} ({card})")
+    floors = {
+        f"x.to(torch.int8), {4 * n + n} bytes as quantize's without the "
+        f"row max": lambda: x.to(torch.int8),
+        f"q.to(torch.float32), {n + 4 * n} bytes as dequantize's without "
+        f"the scale": lambda: q.to(torch.float32),
+        "an empty kernel launch": empty_launch}
+    for what, fn in floors.items():
+        log(f"floor: {what}: {time_cold(fn):.6f} ms ({card})")
 
     # the host-side wrappers around the kernels, on one ResNet56 update
     model = ResNet(ResNetConfig(), device="cuda")

@@ -1,26 +1,35 @@
-"""Time builds of the port's ``topk_rows`` and ``fedavg_accumulate`` kernels
-from several source trees side by side on the card, e.g. a parent commit's
-sources against the working tree's:
+"""Time builds of the port's ``topk_rows``, ``fedavg_accumulate``,
+``quantize_blocks`` and ``dequantize_blocks`` kernels from several source
+trees side by side on the card, e.g. a parent commit's sources against the
+working tree's:
 
     git archive HEAD~1 src/repro_torch/kernels/csrc | tar -x -C build/parent
     python scripts/kernel_ab.py \\
         parent=build/parent/src/repro_torch/kernels/csrc \\
         change=src/repro_torch/kernels/csrc
 
-Each directory's ``topk.cu`` and ``fedavg_reduce.cu`` are built with the
-port's nvcc flags into ``build/kernel_ab/<label>/``, each build is held
-bit-exact against the plain versions at the main paths' shapes, and then
-every build is timed in turns (in order, then reversed, twice) with L2
-flushed before each call (``chip_smoke.time_cold``), beside
-``torch.topk(x.abs(), k)`` and ``torch.add(acc, x, alpha=w)``. Each build's
-``topk_rows`` is also broken down by kernel with ``torch.profiler``.
-Needs a CUDA card; the C interfaces of the two files must be the ones
-``kernels/topk.py`` and ``kernels/fedavg_reduce.py`` bind.
+Each directory's ``topk.cu``, ``fedavg_reduce.cu`` and ``quantize.cu`` are
+built with the port's nvcc flags into ``build/kernel_ab/<label>/``, each
+build is held against the plain versions at the main paths' shapes (bit-exact; dequantize rtol 1e-6; quantize and dequantize
+also on inputs off 16-byte alignment), and then every build is timed in
+turns (in order, then reversed, twice) with L2 flushed before each call
+(``chip_smoke.time_cold``), beside ``torch.topk(x.abs(), k)``,
+``torch.add(acc, x, alpha=w)`` and, for the quantize pair at (3392, 256)
+f32, ``torch.mul(q, s)``, the same-bytes casts ``x.to(torch.int8)`` and
+``q.to(torch.float32)`` and an empty kernel launch (this checkout's
+``quantize.cu``). The quantize pair is timed once more with L2 emptied by
+a read, which leaves no dirty lines to write back. Each build's
+``topk_rows``, ``quantize_blocks`` and ``dequantize_blocks`` are also
+broken down by kernel with ``torch.profiler`` (warm). Needs a CUDA card; a
+tree whose C interface lacks a symbol that ``kernels/topk.py``,
+``kernels/fedavg_reduce.py`` or ``kernels/quantize.py`` binds is reported
+by name and stops the run.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -34,19 +43,28 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import quantize as qz  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
 P = ctypes.c_void_p
 I64 = ctypes.c_int64
 
 
+def bind(label: str, lib, sym: str, argtypes, restype=ctypes.c_int):
+    try:
+        fn = getattr(lib, sym)
+    except AttributeError:
+        raise RuntimeError(f"{label}: its C interface has no {sym}") from None
+    fn.argtypes, fn.restype = argtypes, restype
+
+
 def build(label: str, csrc: Path) -> dict:
-    """Compile the two sources of one tree; returns the bound libraries and
-    the ptxas lines (registers, spills)."""
+    """Compile the three sources of one tree; returns the bound libraries
+    and the ptxas lines (registers, spills)."""
     out = OUT / label
     out.mkdir(parents=True, exist_ok=True)
     libs, report = {}, []
-    for name in ("topk", "fedavg_reduce"):
+    for name in ("topk", "fedavg_reduce", "quantize"):
         so = out / f"lib{name}.so"
         proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o",
                                str(so), str(csrc / f"{name}.cu")],
@@ -57,13 +75,15 @@ def build(label: str, csrc: Path) -> dict:
         report += [ln.strip() for ln in (proc.stdout + proc.stderr)
                    .splitlines() if "registers" in ln or "spill" in ln]
         libs[name] = ctypes.CDLL(str(so))
-    topk = libs["topk"]
-    topk.topk_rows_f32.argtypes = [P, P, P, P, I64, I64, I64, P]
-    topk.topk_rows_scratch_words.argtypes = [I64, I64, I64]
-    topk.topk_rows_scratch_words.restype = I64
-    acc = libs["fedavg_reduce"]
-    acc.fedavg_accumulate_f32.argtypes = [P, P, ctypes.c_float, P, I64, P]
-    return {"topk": topk, "acc": acc, "report": report}
+    bind(label, libs["topk"], "topk_rows_f32", [P, P, P, P, I64, I64, I64, P])
+    bind(label, libs["topk"], "topk_rows_scratch_words", [I64, I64, I64],
+         I64)
+    bind(label, libs["fedavg_reduce"], "fedavg_accumulate_f32",
+         [P, P, ctypes.c_float, P, I64, P])
+    for sym in ("quantize_blocks_f32", "dequantize_blocks_f32"):
+        bind(label, libs["quantize"], sym, [P, P, P, I64, I64, P])
+    return {"topk": libs["topk"], "acc": libs["fedavg_reduce"],
+            "qz": libs["quantize"], "report": report}
 
 
 def topk_call(lib, x, k):
@@ -90,14 +110,55 @@ def acc_call(lib, acc, x, w):
     return out
 
 
-def in_turns(fns: dict) -> dict:
+def quantize_call(lib, x):
+    rows, block = x.shape
+    q = torch.empty((rows, block), dtype=torch.int8, device=x.device)
+    s = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    rc = lib.quantize_blocks_f32(x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                                 rows, block,
+                                 torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"quantize_blocks launch failed ({rc})")
+    return q, s
+
+
+def dequantize_call(lib, q, s):
+    rows, block = q.shape
+    out = torch.empty((rows, block), dtype=torch.float32, device=q.device)
+    rc = lib.dequantize_blocks_f32(q.data_ptr(), s.data_ptr(),
+                                   out.data_ptr(), rows, block,
+                                   torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"dequantize_blocks launch failed ({rc})")
+    return out
+
+
+def time_clean(fn, reps: int = 30) -> float:
+    """As ``chip_smoke.time_cold``, but L2 is emptied by reading a buffer
+    larger than it, so no dirty line is left to write back."""
+    flush = torch.ones(cs.FLUSH_BYTES // 4, dtype=torch.float32,
+                       device="cuda")
+    fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for s, e in zip(starts, ends):
+        flush.max()
+        torch.cuda._sleep(200_000)
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def in_turns(fns: dict, timer=cs.time_cold) -> dict:
     """{label: fn} -> {label: [ms, ...]}: timed in order, then reversed,
     twice."""
     times = {label: [] for label in fns}
     order = list(fns)
     for turn in range(4):
         for label in (order if turn % 2 == 0 else order[::-1]):
-            times[label].append(cs.time_cold(fns[label], reps=20))
+            times[label].append(timer(fns[label], reps=20))
     return times
 
 
@@ -152,7 +213,46 @@ def main() -> int:
            for label, b in built.items()}
     fns["torch.add"] = lambda: torch.add(acc, upd, alpha=cs.ACC_W)
     show(f"fedavg_accumulate T={cs.MAIN_T}, bit-exact", in_turns(fns), card)
+    quantize_ab(built, g, card)
     return 0
+
+
+def quantize_ab(built: dict, g, card: str) -> None:
+    """The quantize pair at the main path's (3392, 256) f32: held, then
+    timed in turns beside the yardsticks, L2 flushed by writes (the
+    repo's yardstick) and by a read."""
+    shape = (cs.MAIN_ROWS, cs.QSGD_BLOCK)
+    x = torch.randn(shape, generator=g, device="cuda") * 1e-2
+    q, s = qz.quantize_blocks_plain(x)
+    off, qoff = cs.off_alignment(x), cs.off_alignment(q)
+    for b in built.values():
+        for xx, qq in ((x, q), (off, qoff)):  # fast and general paths
+            cs.hold_quantize(xx, quantize_call(b["qz"], xx))
+            cs.hold_dequantize(qq, s, torch.float32,
+                               dequantize_call(b["qz"], qq, s))
+    quant = {label: (lambda b=b: quantize_call(b["qz"], x))
+             for label, b in built.items()}
+    quant["x.to(torch.int8)"] = lambda: x.to(torch.int8)
+    quant["empty launch"] = cs.empty_launch
+    dequant = {label: (lambda b=b: dequantize_call(b["qz"], q, s))
+               for label, b in built.items()}
+    dequant["torch.mul(q, s)"] = lambda: torch.mul(q, s)
+    dequant["q.to(torch.float32)"] = lambda: q.to(torch.float32)
+    for timer, how in ((cs.time_cold, "L2 flushed by writes"),
+                       (time_clean, "L2 emptied by a read")):
+        show(f"quantize_blocks {shape} f32, bit-exact, {how}",
+             in_turns(quant, timer), card)
+        show(f"dequantize_blocks {shape} f32, rtol {cs.DEQ_RTOL}, {how}",
+             in_turns(dequant, timer), card)
+    for label, b in built.items():
+        for what, fn in (("quantize_blocks",
+                          lambda b=b: quantize_call(b["qz"], x)),
+                         ("dequantize_blocks",
+                          lambda b=b: dequantize_call(b["qz"], q, s))):
+            parts = cs.device_breakdown(fn)
+            print(f"  {label} {what} by kernel (warm, µs per call): "
+                  + "; ".join(f"{cs.short_name(n)} {us:.3f} (x{c:g})"
+                              for n, us, c in parts), flush=True)
 
 
 if __name__ == "__main__":

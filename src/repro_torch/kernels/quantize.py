@@ -7,11 +7,28 @@ Layout: the input is viewed as (rows, block), one f32 scale per row of
 item to a multiple of ``block * ROW_TILE`` elements, as the reference
 does: the padded lengths are on the wire.
 
+Subnormal f32 values are flushed as XLA flushes them when it runs the
+reference's codec on the CPU (the TPU has no subnormals), in the plain
+versions and the kernels alike:
+
+* quantize: an input value with |x| < ``FLT_MIN`` (2**-126), after bf16
+  input is widened to f32, reads as a zero of its sign before |x|, the row
+  max and the product; a scale ``amax / 127`` below ``FLT_MIN`` becomes 0,
+  so its row takes the ``inv = 0`` branch and quantises to 0;
+* dequantize: a scale with |scale| < ``FLT_MIN`` reads as a zero of its
+  sign. A scale of at least ``FLT_MIN`` times |q| >= 1 is never
+  subnormal, so the product needs no flush.
+
+The reference's NumPy twin ``ref.quantize_blocks_np`` does not flush; it
+agrees with these rules on inputs without subnormals.
+
 Dispatch is by the device of the tensor given: a CPU tensor goes to the
 plain version; a CUDA tensor goes to the hand-written Hopper kernels in
 ``csrc/quantize.cu`` (built with ``nvcc`` at first use) or raises.
 ``QUANTIZE_LAUNCHES`` and ``DEQUANTIZE_LAUNCHES`` count kernel launches,
-so a run can show that its path went through the kernels.
+so a run can show that its path went through the kernels. Which of the
+kernels' two paths a call takes is decided in the C launcher and can be
+asked with ``fast_path`` (see ``csrc/quantize.cu``).
 """
 from __future__ import annotations
 
@@ -22,6 +39,7 @@ import torch
 from repro_torch.kernels import _build
 
 ROW_TILE = 8  # the reference's row tile: part of the wire's padding rule
+FLT_MIN = torch.finfo(torch.float32).tiny  # 2**-126, the least normal f32
 SOURCES = ("quantize.cu",)
 QUANTIZE_LAUNCHES = 0
 DEQUANTIZE_LAUNCHES = 0
@@ -32,14 +50,21 @@ _DEQUANTIZE = {torch.float32: "dequantize_blocks_f32",
                torch.bfloat16: "dequantize_blocks_bf16"}
 
 
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` with every subnormal value replaced by a zero of its sign."""
+    return torch.where(x.abs() < FLT_MIN,
+                       torch.zeros_like(x).copysign(x), x)
+
+
 def quantize_blocks_plain(x: torch.Tensor):
     """(rows, block) float -> (q int8 (rows, block), scales f32 (rows, 1))
-    (``kernels/ref.py:11``)."""
-    x = x.float()
+    (``kernels/ref.py:11``), subnormals flushed as the module says."""
+    x = flush_subnormals(x.float())
     amax = x.abs().amax(dim=-1, keepdim=True)
     # tensor / tensor: true IEEE divisions, as the reference and the kernel
     # take them (PyTorch's CUDA `t / scalar` multiplies by a reciprocal)
     scale = torch.div(amax, torch.full_like(amax, 127.0))
+    scale = torch.where(scale < FLT_MIN, torch.zeros_like(scale), scale)
     inv = torch.where(scale > 0.0,
                       torch.div(torch.ones_like(scale), scale),
                       torch.zeros_like(scale))
@@ -50,8 +75,8 @@ def quantize_blocks_plain(x: torch.Tensor):
 def dequantize_blocks_plain(q: torch.Tensor, scales: torch.Tensor,
                             out_dtype=torch.float32) -> torch.Tensor:
     """(rows, block) int8, (rows, 1) f32 -> (rows, block) ``out_dtype``
-    (``kernels/ref.py:21``)."""
-    return (q.float() * scales.float()).to(out_dtype)
+    (``kernels/ref.py:21``), a subnormal scale read as zero."""
+    return (q.float() * flush_subnormals(scales.float())).to(out_dtype)
 
 
 def build() -> ctypes.CDLL:
@@ -62,9 +87,24 @@ def build() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.quantize_fast_path.argtypes = [ctypes.c_int64, ctypes.c_int,
+                                       ctypes.c_void_p, ctypes.c_void_p]
+    lib.quantize_fast_path.restype = ctypes.c_int
+    lib.quantize_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.quantize_empty_launch.restype = ctypes.c_int
     lib.quantize_error_string.argtypes = [ctypes.c_int]
     lib.quantize_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def fast_path(t: torch.Tensor, float_dtype) -> bool:
+    """Whether a kernel call on the (rows, block) CUDA tensor ``t`` takes
+    the kernels' fast path: ``t`` is quantize's input (``float_dtype`` its
+    dtype) or dequantize's int8 input (``float_dtype`` the output's). The
+    launcher decides from the block, the float dtype and both pointers; the
+    wrappers' fresh outputs are always 16-byte aligned."""
+    return bool(build().quantize_fast_path(
+        t.shape[1], torch.finfo(float_dtype).bits // 8, t.data_ptr(), 0))
 
 
 def _launch(lib, sym: str, device, *args) -> None:

@@ -9,7 +9,8 @@ Tolerances:
   in a different order, so the reference bar (rtol 1e-4 / atol 1e-5)
   holds for f32 and bf16 inputs alike;
 * ``quantize_blocks``: the kernel and the plain version take the same IEEE
-  operations on the same card, so int8 and scales are bit-exact;
+  operations on the same card, with the same subnormal flushes, so int8
+  and scales are bit-exact, on both of the kernel's paths;
 * ``dequantize_blocks``: rtol 1e-6 (one rounded product each);
 * ``fedavg_accumulate``: bit-exact, ragged and misaligned inputs included
   (both round the product and then the sum, on the same card);
@@ -87,31 +88,101 @@ def test_kernel_rejects_wrong_dtype(cuda):
                          torch.ones(2, device=cuda))
 
 
+FMIN = torch.finfo(torch.float32).tiny  # 2**-126
+BELOW = float(np.nextafter(np.float32(FMIN), np.float32(0)))
+
+
+def _fast(block, dtype, aligned):
+    """The kernels' fast-path rule (csrc/quantize.cu): the row spans 512,
+    1024, 2048 or 4096 bytes of its float side, pointers 16-byte aligned."""
+    return aligned and block * torch.finfo(dtype).bits // 8 in (512, 1024,
+                                                                2048, 4096)
+
+
+def _on_card(x, dtype, cuda, aligned):
+    """``x`` on the card as a contiguous ``dtype`` tensor; off 16-byte
+    alignment (a view one element into a buffer) unless ``aligned``."""
+    if aligned:
+        return x.to(cuda, dtype)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    buf[1:] = x.reshape(-1).to(cuda, dtype)
+    return buf[1:].reshape(x.shape)
+
+
+def _quantize_input(rows, block, kind, g):
+    """(rows, block) f32: "randn" and "misaligned" (an all-zero row),
+    "ties" (x * inv exactly k + 0.5 at scales 1 and 2) or "subnormal" (row
+    r takes the r % 7-th rule of kernels/quantize.py's flush)."""
+    x = torch.randn((rows, block), generator=g) * 3
+    if kind == "ties":
+        f = (1.0 + torch.arange(rows) % 2)[:, None]  # scale 1 or 2
+        x = (torch.randint(-126, 126, (rows, block), generator=g) + 0.5) * f
+        x[:, 0] = 127 * f[:, 0]
+    elif kind == "subnormal":
+        r = torch.arange(rows) % 7
+        sub = torch.randn((rows, block), generator=g)
+        x[r == 0] = torch.linspace(-1e-36, 1e-36, block)  # scale -> 0
+        x[r == 1] = sub[r == 1] * 1e-38  # subnormal and normal entries
+        x[r == 1, 0] = 1.5e-36
+        x[r == 2] = torch.tensor([FMIN, -FMIN, BELOW, -BELOW,
+                                  0.0])[torch.arange(block) % 5]
+        x[r == 2, 0] = 127 * FMIN  # scale exactly FMIN
+        # scale < 2**-128: 1 / scale would be inf, 0 * inf NaN
+        x[r == 3] = sub[r == 3].clamp(-3, 3) * 1e-37
+        x[r == 3, ::7] = 0.0
+        x[r == 4] = sub[r == 4] * 1e-40  # subnormals only
+        x[r == 5, ::5] *= 1e-39  # a normal row with subnormal entries
+        x[r == 6] = -0.0
+    else:
+        x[rows // 2] = 0  # an all-zero row: scale 0, q 0
+    return x
+
+
 # (3392, 256): one ResNet56 update (868,123 parameters) padded to whole
-# (8, 256) row tiles, the main path's qsgd shape
-@pytest.mark.parametrize("rows,block", [(3392, 256), (8, 256), (24, 128),
-                                        (5, 100), (1, 1)])
+# (8, 256) row tiles, the main path's qsgd shape; 3 x 3392 rows take more
+# than one wave of warps
+@pytest.mark.parametrize("rows,block,kind", [
+    (3392, 256, "randn"), (8, 256, "randn"), (24, 128, "randn"),
+    (8, 512, "randn"), (8, 1024, "randn"), (4, 2048, "randn"),
+    (5, 100, "randn"), (16, 64, "randn"), (1, 1, "randn"),
+    (3 * 3392, 256, "randn"), (3392, 256, "misaligned"),
+    (24, 128, "misaligned"), (64, 256, "ties"), (64, 100, "ties"),
+    (70, 256, "subnormal"), (70, 128, "subnormal"), (70, 100, "subnormal")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quantize_matches_plain(cuda, rows, block, dtype):
+def test_quantize_matches_plain(cuda, rows, block, kind, dtype):
     g = torch.Generator(device="cpu").manual_seed(rows * 7 + block)
-    x = (torch.randn((rows, block), generator=g) * 3).to(cuda, dtype)
-    x[rows // 2] = 0  # an all-zero row: scale 0, q 0
+    aligned = kind != "misaligned"
+    x = _on_card(_quantize_input(rows, block, kind, g), dtype, cuda, aligned)
+    assert qz.fast_path(x, dtype) == _fast(block, dtype, aligned)
     before = qz.QUANTIZE_LAUNCHES
     q, s = qz.quantize_blocks(x)
     torch.cuda.synchronize()
     assert qz.QUANTIZE_LAUNCHES == before + 1
     pq, ps = qz.quantize_blocks_plain(x)
     assert torch.equal(q, pq) and torch.equal(s, ps)
-    assert not q[rows // 2].any() and float(s[rows // 2]) == 0.0
+    if kind in ("randn", "misaligned"):
+        assert not q[rows // 2].any() and float(s[rows // 2]) == 0.0
 
 
-@pytest.mark.parametrize("rows,block", [(3392, 256), (24, 128), (5, 100)])
+@pytest.mark.parametrize("rows,block,kind", [
+    (3392, 256, "rand"), (24, 128, "rand"), (5, 100, "rand"),
+    (8, 512, "rand"), (8, 1024, "rand"), (4, 2048, "rand"),
+    (16, 64, "rand"), (1, 1, "rand"), (3 * 3392, 256, "rand"),
+    (3392, 256, "misaligned"), (24, 128, "misaligned"),
+    (70, 256, "subnormal"), (70, 100, "subnormal")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dequantize_matches_plain(cuda, rows, block, dtype):
+def test_dequantize_matches_plain(cuda, rows, block, kind, dtype):
     g = torch.Generator(device="cpu").manual_seed(rows + block)
-    q = torch.randint(-127, 128, (rows, block), generator=g,
-                      dtype=torch.int8).to(cuda)
-    s = torch.rand((rows, 1), generator=g).to(cuda)
+    aligned = kind != "misaligned"
+    q = _on_card(torch.randint(-127, 128, (rows, block), generator=g,
+                               dtype=torch.int8), torch.int8, cuda, aligned)
+    s = torch.rand((rows, 1), generator=g)
+    if kind == "subnormal":  # every 2nd scale subnormal, +-FMIN, +-0.0
+        s[::2, 0] = torch.tensor([1e-40, FMIN, BELOW, -1e-40, 0.0, -0.0,
+                                  2e-38, -FMIN, 1e-45])[
+            torch.arange(0, rows, 2) % 9]
+    s = s.to(cuda)
+    assert qz.fast_path(q, dtype) == _fast(block, dtype, aligned)
     before = qz.DEQUANTIZE_LAUNCHES
     out = qz.dequantize_blocks(q, s, out_dtype=dtype)
     torch.cuda.synchronize()
