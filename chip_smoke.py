@@ -11,13 +11,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    csrc`` with ``nvcc`` for ``sm_90a``;
 3. hold every kernel against its plain PyTorch version on the card at the
    main path's shapes, and time the kernel, the plain version and the
-   one-call library yardstick (L2 flushed before every timed call);
-   FedAvg's shape is (counted updates, parameters): at quorum 0.7 of 7
-   silos the round closes on the first ceil(0.7 * 7) = 5 arrivals;
+   one-call library yardstick, cold (L2 flushed before every timed call)
+   and, where the call can be captured, replayed from a CUDA graph (warm),
+   beside an empty launch under both; FedAvg runs in its tree form, which
+   reads the clients' leaves in place, on (counted updates) full-width
+   trees: at quorum 0.7 of 7 silos the round closes on the first
+   ceil(0.7 * 7) = 5 arrivals; ResNet56 (169 leaves) and MobileNetV3
+   (151), beside the (N, T) form and ``torch.mv`` on the stacked matrix;
 4. the main path: 2 sync FL rounds of full-width ResNet56 over 7 geo
    silos on ``grpc``, ``torch_rpc`` and ``grpc+s3``; FedAvg must go
-   through the kernel once per round, at phase 3's shape, and each
-   round's FedAvg is held against the plain version on the same inputs;
+   through the kernel's tree form once per round, at phase 3's shape,
+   and each round's FedAvg is held bit for bit against the plain version
+   on the same inputs;
 5. the fault story: ``mpi_generic`` aborts when clients drop, ``grpc+s3``
    meets its quorum;
 6. the reference check: a reduced round on the card against the same
@@ -42,7 +47,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the card (f32) and on the CPU (f32), each held against the CPU (f64),
    from the same parameters and batch.
 
-Phase 3 also holds ``quantize_blocks``, ``dequantize_blocks`` and
+The three FedAvg kernels flush subnormals as XLA does on the CPU and sum
+the clients in order, so each is held bit for bit against its plain
+version, on rows across 1e-46-1e-33 too. Phase 3 also holds
+``quantize_blocks``, ``dequantize_blocks`` and
 ``fedavg_accumulate`` against their plain versions (ragged shapes; blocks
 on and off the quantize pair's fast path; rows for each of the quantize
 pair's subnormal rules, half-way ties and subnormal scales; views off
@@ -54,7 +62,8 @@ them on one ResNet56 update; then ``topk_rows`` (edge
 shapes with ties and signed zeros, k over many sort tiles, k = T,
 all-equal rows of 1,000,000, then one MobileNetV3 and one ResNet56
 update at ``topk:0.05``, each broken down by kernel) and
-``fedavg_reduce_q8`` (edge shapes, then 5 ResNet56 updates), and the top-k
+``fedavg_reduce_q8`` (edge shapes on both of its paths, then 5 ResNet56
+updates), and the top-k
 codec's host work on one MobileNetV3 update. Phase 7 also runs the repo's
 ``examples/scenarios/hospitals_geo3.json`` as written (semisync, grpc+s3,
 ``topk:0.05`` + ``zlib:3``, 3 geo silos, the Medium tier's MobileNetV3 at
@@ -109,7 +118,7 @@ MAIN_T = 868_123  # ResNetConfig() parameters: the FedAvg vector length
 BACKENDS = ("grpc", "torch_rpc", "grpc+s3")
 ROUNDS = 2
 LOCAL_STEPS = 3
-RTOL, ATOL = 1e-4, 1e-5  # kernel vs plain: both sum f32 products
+RTOL, ATOL = 1e-4, 1e-5  # fedavg_quantized vs FedAvg of dequantised trees
 DEQ_RTOL = 1e-6  # dequantize vs plain: one rounded product each
 ACC_W = 0.37  # a fold's effective weight (any non-trivial value)
 QSGD_BLOCK = 256
@@ -119,6 +128,8 @@ QUANT_OPS = 6  # per element: |x|, max, multiply, round, two clamps
 FLUSH_BYTES = 256 * 2 ** 20  # > the 50 MB L2
 TOPK_FRAC = 0.05  # hospitals_geo3.json's topk:0.05, and the codec default
 MEDIUM_T = 4_375_723  # MobileNetConfig() parameters: one Medium update
+MAIN_LEAVES = 169  # ResNetConfig()'s leaves: the tree form's L
+MEDIUM_LEAVES = 151  # MobileNetConfig()'s leaves
 Q8_N = 5  # fedavg_quantized: the main path's FedAvg count of updates
 Q8_T = MAIN_ROWS * QSGD_BLOCK  # one ResNet56 update on the qsgd wire
 KERNELS = ("fedavg_reduce", "fedavg_accumulate", "quantize_blocks",
@@ -126,6 +137,9 @@ KERNELS = ("fedavg_reduce", "fedavg_accumulate", "quantize_blocks",
 _MODULE = {"fedavg_reduce": fr, "fedavg_accumulate": fr,
            "quantize_blocks": qz, "dequantize_blocks": qz,
            "fedavg_reduce_q8": fr, "topk_rows": tk}
+# the wrappers that launch each kernel (fedavg_reduce: the (N, T) form and
+# the tree form)
+_WRAPPERS = {"fedavg_reduce": ("fedavg_reduce", "fedavg_reduce_leaves")}
 _COUNTER = {"fedavg_reduce": "LAUNCHES",
             "fedavg_accumulate": "ACCUMULATE_LAUNCHES",
             "quantize_blocks": "QUANTIZE_LAUNCHES",
@@ -163,6 +177,32 @@ def time_cold(fn, reps: int = 30) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def time_graph(fn, reps: int = 20, replays: int = 10) -> float:
+    """Median device ms per call of ``fn()`` replayed from one CUDA graph
+    that holds ``reps`` calls: the warm yardstick beside ``time_cold``, with
+    no launch gaps and no flush (inputs that fit stay in L2). ``fn`` must
+    be capturable: no host copies, no synchronise."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    out = []
+    for _ in range(replays):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        graph.replay()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e) / reps)
+    return statistics.median(out)
 
 
 def synchronize() -> None:
@@ -211,6 +251,13 @@ def short_name(kernel: str) -> str:
     return name[5:] if name.startswith("void ") else name
 
 
+def bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit (int32 views: torch.equal calls -0.0 equal to
+    +0.0)."""
+    return got.shape == want.shape and got.dtype == want.dtype \
+        and torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def launches() -> dict:
     return {k: getattr(_MODULE[k], _COUNTER[k]) for k in KERNELS}
 
@@ -230,16 +277,60 @@ def bound(nbytes: int, ops_: int, card: str):
 
 # -- phase 3: kernel against its plain version --------------------------
 def hold_against_plain(x, w, got) -> float:
-    """Max abs error of the kernel's ``got`` against the plain version on
-    the same inputs; raises past the tolerance."""
+    """The (N, T) form: bit-exact against the plain version on the same
+    inputs (same operations, same client order, same flushes); returns
+    the max abs error (0 when exact), raises otherwise."""
     want = fr.fedavg_reduce_plain(x, w)
-    err = float((got - want).abs().max())
-    if got.shape != want.shape or got.dtype != torch.float32 \
-            or not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not bits_equal(got, want):
         raise AssertionError(f"fedavg_reduce disagrees with its plain "
                              f"version at {tuple(x.shape)} {x.dtype}: max "
                              f"abs err {err:.3e}")
     return err
+
+
+def hold_leaves(leaves, w, got) -> float:
+    """The tree form: every output leaf bit-exact against the plain
+    version on the same leaves and weights."""
+    want = fr.fedavg_reduce_leaves_plain(leaves, w)
+    err = max(float((a - b).abs().max()) if a.numel() else 0.0
+              for a, b in zip(got, want))
+    if len(got) != len(want) or not all(bits_equal(a, b)
+                                        for a, b in zip(got, want)):
+        raise AssertionError(f"fedavg_reduce's tree form disagrees with its "
+                             f"plain version on {len(leaves)} trees of "
+                             f"{len(leaves[0])} leaves: max abs err "
+                             f"{err:.3e}")
+    return err
+
+
+def hold_reduce(args, out) -> float:
+    """Either form of ``fedavg_reduce``, by its arguments."""
+    if isinstance(args[0], torch.Tensor):
+        return hold_against_plain(*args, out)
+    return hold_leaves(*args, out)
+
+
+def reduce_shape(args) -> tuple:
+    """(N, T) of an (N, T) call; (N, T, L) of a tree-form call."""
+    if isinstance(args[0], torch.Tensor):
+        return tuple(args[0].shape)
+    leaves = args[0]
+    return (len(leaves), sum(l.numel() for l in leaves[0]), len(leaves[0]))
+
+
+def vector_tiles(leaves) -> tuple:
+    """(tiles that take the kernel's 16-byte loads, all tiles) of a
+    tree-form call on N clients' ``leaves``: a tile does when the N
+    pointers to it are all aligned to 4 elements (every output slot is).
+    Tiles start at multiples of fr.TILE, so a tile is aligned as its leaf."""
+    vec = tiles = 0
+    for col in zip(*leaves):
+        k = -(-col[0].numel() // fr.TILE)
+        tiles += k
+        if all(l.data_ptr() % (4 * l.element_size()) == 0 for l in col):
+            vec += k
+    return vec, tiles
 
 
 def check_fedavg_reduce(n: int, t: int, dtype, seed: int):
@@ -250,40 +341,157 @@ def check_fedavg_reduce(n: int, t: int, dtype, seed: int):
     return x, w, hold_against_plain(x, w, fr.fedavg_reduce(x, w))
 
 
+def tiny_values(n: int, g) -> torch.Tensor:
+    """(n,) f32 on the card: both signs, magnitudes spanning 1e-46-1e-33,
+    every 97th value normal."""
+    x = 10.0 ** (torch.rand(n, generator=g, device="cuda") * 13 - 46) \
+        * torch.randn(n, generator=g, device="cuda").sign()
+    x[::97] = torch.randn(x[::97].shape, generator=g, device="cuda")
+    return x
+
+
+def window_values(n: int, w: float, g) -> torch.Tensor:
+    """(n,) f32 on the card whose products with the f32 ``w`` lie within
+    2**-21 of FLT_MIN: some in the window just below it that IEEE rounds
+    up to FLT_MIN and XLA's flush, like the kernels' mul.rn.ftz.f32,
+    makes 0."""
+    target = qz.FLT_MIN * (1 + (torch.rand(n, generator=g, device="cuda",
+                                           dtype=torch.float64) * 2 - 1)
+                           * 2.0 ** -21)
+    sign = torch.randint(0, 2, (n,), generator=g, device="cuda") * 2 - 1
+    return (target / float(w) * sign).float()
+
+
+def client_leaves(template, n: int, g, *, views: bool, kind="randn",
+                  dtype=torch.float32, w=None):
+    """n clients' leaves shaped like ``template``: separate tensors (as the
+    wire decodes raw payloads) or views of one flat vector at the leaves'
+    running offsets (as the codecs decode); ``kind`` "randn" (normal),
+    "tiny" (across the subnormal range) or "window" (client i's products
+    with w[i] just around FLT_MIN)."""
+    sizes = [l.numel() for l in template]
+    out = []
+    for i in range(n):
+        if kind == "window":
+            flat = window_values(sum(sizes), w[i], g)
+        elif kind == "tiny":
+            flat = tiny_values(sum(sizes), g)
+        else:
+            flat = torch.randn(sum(sizes), generator=g, device="cuda")
+        parts = flat.to(dtype).split(sizes)
+        out.append([(p if views else p.clone()).view(l.shape)
+                    for p, l in zip(parts, template)])
+    return out
+
+
+def tree_form_phase(card: str, g) -> dict:
+    """The tree form on MAIN_N full-width trees of each tier: held bit for
+    bit (separate leaves, views off 16-byte alignment, bf16, the
+    subnormal range), timed cold and from a CUDA graph beside the (N, T)
+    form and ``torch.mv``; ``ops.fedavg_aggregate``'s host ms. Returns the
+    record of the ResNet56 call, the main path's."""
+    tiers = {"ResNet56": (ResNet(ResNetConfig(), device="cuda"), MAIN_T,
+                          MAIN_LEAVES),
+             "MobileNetV3": (MobileNetV3(MobileNetConfig(), device="cuda"),
+                             MEDIUM_T, MEDIUM_LEAVES)}
+    w = torch.rand((MAIN_N,), generator=g, device="cuda") + 0.5
+    w = (w / w.sum()).cpu().numpy()
+    rec = None
+    for tier, (model, t, n_leaves) in tiers.items():
+        template, treedef = _tree.flatten(
+            model.init(torch.Generator().manual_seed(1)))
+        expect(tier, "parameters", sum(l.numel() for l in template), t)
+        expect(tier, "leaves", len(template), n_leaves)
+        err = 0.0
+        for views, kind, dtype in ((False, "randn", torch.float32),
+                                   (True, "randn", torch.float32),
+                                   (False, "tiny", torch.float32),
+                                   (True, "tiny", torch.float32),
+                                   (False, "window", torch.float32),
+                                   (True, "window", torch.float32),
+                                   (False, "randn", torch.bfloat16),
+                                   (True, "tiny", torch.bfloat16)):
+            leaves = client_leaves(template, MAIN_N, g, views=views,
+                                   kind=kind, dtype=dtype, w=w)
+            err = max(err, hold_leaves(leaves, w, fr.fedavg_reduce_leaves(
+                leaves, w)))
+        for n in (1, 25):
+            leaves = client_leaves(template, n, g, views=True)
+            wn = torch.full((n,), 1.0 / n).numpy()
+            err = max(err, hold_leaves(leaves, wn, fr.fedavg_reduce_leaves(
+                leaves, wn)))
+        log(f"fedavg_reduce tree form, {tier} ({n_leaves} leaves), N 1/"
+            f"{MAIN_N}/25, separate leaves and views off 16-byte alignment, "
+            f"f32 and bf16, random, across 1e-46-1e-33 and products just "
+            f"around FLT_MIN: bit-exact")
+        leaves = client_leaves(template, MAIN_N, g, views=False)
+        call = fr.leaf_call(leaves, w)
+        out = torch.empty(call.plan.numel, device="cuda")
+        vleaves = client_leaves(template, MAIN_N, g, views=True)
+        vcall = fr.leaf_call(vleaves, w)
+        vec, tiles = vector_tiles(vleaves)
+        stacked = torch.stack([torch.cat([l.reshape(-1) for l in c])
+                               for c in leaves])
+        wd = torch.from_numpy(w).cuda()
+        nbytes = 4 * MAIN_N * t + 4 * MAIN_N + 4 * t
+        bound_ms, bound_by = bound(nbytes, 2 * MAIN_N * t, card)
+        timed = {
+            "tree kernel (prepared tables)":
+                lambda: fr.launch_leaves(call, out),
+            f"tree kernel on views of one flat vector (prepared tables; "
+            f"{vec} of {tiles} tiles aligned)":
+                lambda: fr.launch_leaves(vcall, out),
+            "tree wrapper (tables copied, kernel)":
+                lambda: fr.fedavg_reduce_leaves(leaves, w),
+            "(N, T) form on the stacked matrix":
+                lambda: fr.fedavg_reduce(stacked, wd),
+            "plain version": lambda: fr.fedavg_reduce_leaves_plain(leaves, w),
+            "torch.mv(stacked.t(), w)": lambda: torch.mv(stacked.t(), wd)}
+        graph_ok = ("tree kernel (prepared tables)", list(timed)[1],
+                    "(N, T) form on the stacked matrix",
+                    "torch.mv(stacked.t(), w)")
+        ms = {}
+        for what, fn in timed.items():
+            ms[what] = time_cold(fn)
+            warm = (f"; graph-replayed {time_graph(fn):.6f} ms"
+                    if what in graph_ok else "")
+            log(f"fedavg_reduce {tier} ({MAIN_N}, {t}), {n_leaves} leaves, "
+                f"{what}: cold {ms[what]:.6f} ms{warm} (bound "
+                f"{bound_ms:.6f} ms, {nbytes} bytes, {bound_by}; {card})")
+        trees = [_tree.unflatten(treedef, c) for c in leaves]
+        agg_ms = time_host(lambda: ops.fedavg_aggregate(trees,
+                                                        [64.0] * MAIN_N))
+        log(f"ops.fedavg_aggregate, {MAIN_N} x {tier} trees ({n_leaves} "
+            f"leaves): {agg_ms:.6f} ms host clock, synchronised ({card})")
+        if tier == "ResNet56":
+            rec = {"max_abs_err": err,
+                   "ms": ms["tree kernel (prepared tables)"],
+                   "plain_ms": ms["plain version"],
+                   "library_ms": ms["torch.mv(stacked.t(), w)"],
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+    return rec
+
+
 def kernel_phase(card: str) -> dict:
     for n, t in ((3, 3007), (1, 1), (5, 255), (16, 4096)):  # ragged tails
         for dtype in (torch.float32, torch.bfloat16):
             _, _, err = check_fedavg_reduce(n, t, dtype, seed=n * 7 + t)
-            log(f"fedavg_reduce ({n}, {t}) {dtype}: max abs err {err:.3e}")
-    rec = {}
+            log(f"fedavg_reduce ({n}, {t}) {dtype}: bit-exact")
+    log(f"floor: an empty kernel launch: cold {time_cold(empty_launch):.6f} "
+        f"ms, graph-replayed {time_graph(empty_launch):.6f} ms ({card})")
     for dtype in (torch.float32, torch.bfloat16):
         x, w, err = check_fedavg_reduce(MAIN_N, MAIN_T, dtype, seed=11)
         nbytes = x.numel() * x.element_size() + 4 * MAIN_N + 4 * MAIN_T
-        bytes_ms = nbytes / hbm_rate(card) * 1e3
-        ops_ms = 2 * MAIN_N * MAIN_T / F32_FLOPS * 1e3
-        kernel_ms = time_cold(lambda: fr.fedavg_reduce(x, w))
-        plain_ms = time_cold(lambda: fr.fedavg_reduce_plain(x, w))
-        library_ms = (time_cold(lambda: torch.mv(x.t(), w))
-                      if dtype == torch.float32 else None)
-        log(f"fedavg_reduce ({MAIN_N}, {MAIN_T}) {dtype}: max abs err "
-            f"{err:.3e} kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
-            f"library_ms={library_ms} bound_ms={max(bytes_ms, ops_ms):.6f} "
-            f"({nbytes} bytes; {card})")
-        rec[dtype] = {"max_abs_err": err, "ms": kernel_ms,
-                      "plain_ms": plain_ms, "library_ms": library_ms,
-                      "bound_ms": max(bytes_ms, ops_ms),
-                      "bound_by": "bytes" if bytes_ms >= ops_ms
-                      else "operations"}
-
-    # the tree-level call the server makes: MAIN_N ResNet56 trees of 169
-    # leaves
-    model = ResNet(ResNetConfig(), device="cuda")
-    trees = [model.init(torch.Generator().manual_seed(s))
-             for s in range(MAIN_N)]
-    agg_ms = time_host(lambda: ops.fedavg_aggregate(trees, [64.0] * MAIN_N))
-    log(f"ops.fedavg_aggregate, {MAIN_N} x ResNet56 trees (169 leaves): "
-        f"{agg_ms:.6f} ms host clock ({card})")
-    return rec[torch.float32]
+        bound_ms, _ = bound(nbytes, 2 * MAIN_N * MAIN_T, card)
+        log(f"fedavg_reduce (N, T) form ({MAIN_N}, {MAIN_T}) {dtype} (rows "
+            f"after the first off 16-byte alignment: single-element loads): "
+            f"bit-exact; cold {time_cold(lambda: fr.fedavg_reduce(x, w)):.6f}"
+            f" ms, graph-replayed "
+            f"{time_graph(lambda: fr.fedavg_reduce(x, w)):.6f} ms, plain "
+            f"{time_cold(lambda: fr.fedavg_reduce_plain(x, w)):.6f} ms "
+            f"(bound {bound_ms:.6f} ms, {nbytes} bytes; {card})")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    return tree_form_phase(card, g)
 
 
 def hold_quantize(x, got) -> float:
@@ -342,17 +550,18 @@ def hold_topk(x, k, got) -> float:
 
 
 def hold_q8(q, s, w, block, got) -> float:
+    """Bit-exact, on either of the kernel's paths: the same operations in
+    the same client order, with the same flushes."""
     want = fr.fedavg_reduce_q8_plain(q, s, w, block)
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    if got.shape != want.shape or got.dtype != torch.float32 \
-            or not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+    if not bits_equal(got, want):
         raise AssertionError(f"fedavg_reduce_q8 disagrees with its plain "
                              f"version at {tuple(q.shape)} block {block}: "
                              f"max abs err {err:.3e}")
     return err
 
 
-HOLD = {"fedavg_reduce": lambda args, out: hold_against_plain(*args, out),
+HOLD = {"fedavg_reduce": hold_reduce,
         "topk_rows": lambda args, out: hold_topk(*args, out),
         "fedavg_reduce_q8": lambda args, out: hold_q8(*args, out),
         "quantize_blocks": lambda args, out: hold_quantize(*args, out),
@@ -447,6 +656,12 @@ def new_kernels_phase(card: str) -> dict:
         x = torch.randn(t + x_off, generator=g, device="cuda")[x_off:]
         aerr = max(aerr, hold_accumulate(acc, x, ACC_W, fr.fedavg_accumulate(
             acc, x, ACC_W)))
+    for t, off in ((MAIN_T, 0), (MAIN_T, 1), (4097, 3)):  # subnormal range
+        acc = tiny_values(t + off, g)[off:]
+        x = tiny_values(t + off, g)[off:]
+        for w in (ACC_W, 1e-39, 1.0):
+            aerr = max(aerr, hold_accumulate(acc, x, w, fr.fedavg_accumulate(
+                acc, x, w)))
     for t in (1, 255, 3001, 4097):
         flat = torch.randn(t, generator=g, device="cuda")
         for block in (256, 128):  # the flat wrapper's wire: as on the CPU
@@ -457,7 +672,8 @@ def new_kernels_phase(card: str) -> dict:
                 raise AssertionError(f"quantize_flat_batch on the card "
                                      f"differs from the CPU at T={t}")
     log(f"quantize/dequantize/accumulate, ragged shapes (accumulate also "
-        f"on views off 16-byte alignment), f32 and bf16: max abs err "
+        f"on views off 16-byte alignment and across 1e-46-1e-33), f32 and "
+        f"bf16: max abs err "
         f"{qerr:.3e} / {derr:.3e} / {aerr:.3e}")
 
     # the main path's shapes: one ResNet56 update as (3392, 256) f32
@@ -616,19 +832,39 @@ def last_kernels_phase(card: str) -> dict:
     log(f"topk_rows, {n_checked} edge cases (B 1/3, T 1..1,000,000, k 1 / "
         f"5 % / T and across many sort tiles, ties, all-equal rows, +-0.0, "
         f"zero rows, f32 and bf16): idx and vals bit-exact")
+    q8_paths = set()
     for n in (1, 3, 5):
         for t in (256, 2048 + 256, Q8_T):
-            for block in (128, 256):
-                q = torch.randint(-127, 128, (n, t), generator=g,
-                                  device="cuda", dtype=torch.int8)
+            for block, offset in ((128, 0), (256, 0), (256, 1), (64, 3)):
+                buf = torch.randint(-127, 128, (n * t + offset,), generator=g,
+                                    device="cuda", dtype=torch.int8)
+                q = buf[offset:].view(n, t)  # offset 1, 3: the general path
                 s = torch.rand((n, t // block), generator=g,
                                device="cuda") * 1e-2
+                s[:, ::5] = tiny_values(s[:, ::5].numel(), g).abs() \
+                    .view(n, -1)  # subnormal scales, and products of FLT_MIN
+                s[0, 0] = qz.FLT_MIN
                 w = torch.rand((n,), generator=g, device="cuda") + 0.5
                 w = w / w.sum()
+                q8_paths.add(fr.q8_fast_path(q, block))
                 qerr = max(qerr, hold_q8(q, s, w, block,
                                          fr.fedavg_reduce_q8(q, s, w, block)))
-    log(f"fedavg_reduce_q8, N 1/3/5, T' 256/2304/{Q8_T}, block 128/256: max "
-        f"abs err {qerr:.3e}")
+        for t, block in ((2002, 2), (63, 7), (2000, 100)):  # 2, 7: general
+            q = torch.randint(-127, 128, (n, t), generator=g, device="cuda",
+                              dtype=torch.int8)
+            w = torch.full((n,), 1.0 / n, device="cuda")
+            s = torch.stack([window_values(t // block, float(wi), g).abs()
+                             for wi in w])  # q = +-1: products at FLT_MIN
+            q[:, ::2] = q[:, ::2].sign()
+            q8_paths.add(fr.q8_fast_path(q, block))
+            qerr = max(qerr, hold_q8(q, s, w, block,
+                                     fr.fedavg_reduce_q8(q, s, w, block)))
+    if q8_paths != {True, False}:
+        raise AssertionError(f"fedavg_reduce_q8 edge cases took paths "
+                             f"{q8_paths}")
+    log(f"fedavg_reduce_q8, N 1/3/5, T' 63..{Q8_T}, block 2..256, q on and "
+        f"off 4-byte alignment (both paths), scales across 1e-46-1e-33 and "
+        f"products just around FLT_MIN: bit-exact")
 
     # the main paths' shapes: one Medium and one Small update at topk:0.05
     for t in (MEDIUM_T, MAIN_T):
@@ -660,15 +896,27 @@ def last_kernels_phase(card: str) -> dict:
     s = torch.rand((Q8_N, Q8_T // QSGD_BLOCK), generator=g,
                    device="cuda") * 1e-2
     w = torch.full((Q8_N,), 1.0 / Q8_N, device="cuda")
+    if not fr.q8_fast_path(q, QSGD_BLOCK):
+        raise AssertionError("the main shape would take q8's general path")
     err = hold_q8(q, s, w, QSGD_BLOCK, fr.fedavg_reduce_q8(q, s, w, QSGD_BLOCK))
     nbytes = Q8_N * Q8_T + 4 * Q8_N * (Q8_T // QSGD_BLOCK) + 4 * Q8_N \
         + 4 * Q8_T
     bound_ms, bound_by = bound(nbytes, 3 * Q8_N * Q8_T, card)
     kernel_ms = time_cold(lambda: fr.fedavg_reduce_q8(q, s, w, QSGD_BLOCK))
+    graph_ms = time_graph(lambda: fr.fedavg_reduce_q8(q, s, w, QSGD_BLOCK))
     plain_ms = time_cold(lambda: fr.fedavg_reduce_q8_plain(q, s, w,
                                                           QSGD_BLOCK))
-    log(f"fedavg_reduce_q8 ({Q8_N}, {Q8_T}) block {QSGD_BLOCK}: max abs err "
-        f"{err:.3e} kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
+    qo = off_alignment(q)
+    if fr.q8_fast_path(qo, QSGD_BLOCK):
+        raise AssertionError("q off 4-byte alignment would take q8's fast "
+                             "path")
+    err = max(err, hold_q8(qo, s, w, QSGD_BLOCK,
+                           fr.fedavg_reduce_q8(qo, s, w, QSGD_BLOCK)))
+    general_ms = time_cold(lambda: fr.fedavg_reduce_q8(qo, s, w, QSGD_BLOCK))
+    log(f"fedavg_reduce_q8 ({Q8_N}, {Q8_T}) block {QSGD_BLOCK}: bit-exact; "
+        f"fast path kernel_ms={kernel_ms:.6f} graph-replayed {graph_ms:.6f} "
+        f"ms; general path (q off 4-byte alignment) {general_ms:.6f} ms; "
+        f"plain_ms={plain_ms:.6f} "
         f"library_ms=None (no one call computes it) bound_ms={bound_ms:.6f} "
         f"({nbytes} bytes, {bound_by}; {card})")
     rec["fedavg_reduce_q8"] = {"max_abs_err": max(err, qerr),
@@ -697,22 +945,24 @@ def last_kernels_phase(card: str) -> dict:
 @contextlib.contextmanager
 def recording(calls: dict):
     """Keep the inputs and output of every call of the kernel
-    wrappers (``calls[name]``: a list of (args, out)), so each can be held
-    against its plain version after the run, outside its timed state."""
-    kept = {name: getattr(_MODULE[name], name) for name in KERNELS}
+    wrappers (``calls[name]``: a list of (args, out), both forms of
+    ``fedavg_reduce`` under its name), so each can be held against its
+    plain version after the run, outside its timed state."""
+    kept = {(name, w): getattr(_MODULE[name], w) for name in KERNELS
+            for w in _WRAPPERS.get(name, (name,))}
 
-    def record(name, *args):
-        out = kept[name](*args)
-        calls.setdefault(name, []).append((args, out))
+    def record(key, *args):
+        out = kept[key](*args)
+        calls.setdefault(key[0], []).append((args, out))
         return out
 
-    for name in KERNELS:
-        setattr(_MODULE[name], name, functools.partial(record, name))
+    for key in kept:
+        setattr(_MODULE[key[0]], key[1], functools.partial(record, key))
     try:
         yield
     finally:
-        for name, fn in kept.items():
-            setattr(_MODULE[name], name, fn)
+        for (name, w), fn in kept.items():
+            setattr(_MODULE[name], w, fn)
 
 
 # -- phases 4-5: the main path and the fault story ----------------------
@@ -742,10 +992,12 @@ def run_rounds(backend: str, *, rounds: int, reduced: bool, device,
                                      f"times, expected once")
             if not all(l.is_cuda for l in leaves):
                 raise AssertionError(f"{backend}: global params left the card")
-            (x, w), got = calls[0]
-            err = hold_against_plain(x, w, got)
+            args, got = calls[0]
+            err = hold_reduce(args, got)
             if fedavg is not None:
-                fedavg.append((tuple(x.shape), err))
+                shape = reduce_shape(args)
+                fedavg.append((shape, err, vector_tiles(args[0])
+                               if len(shape) == 3 else (0, 0)))
         if rep.losses is None or not math.isfinite(rep.losses) or not all(
                 bool(torch.isfinite(l).all()) for l in leaves):
             raise AssertionError(f"{backend} round {r}: non-finite loss "
@@ -776,13 +1028,17 @@ def main_path(device):
     if launches != ROUNDS * len(BACKENDS):
         raise AssertionError(f"main path launched fedavg_reduce {launches} "
                              f"times, expected {ROUNDS * len(BACKENDS)}")
-    shapes = {shape for shape, _ in fedavg}
-    if shapes != {(MAIN_N, MAIN_T)}:
+    shapes = {shape for shape, _, _ in fedavg}
+    if shapes != {(MAIN_N, MAIN_T, MAIN_LEAVES)}:
         raise AssertionError(f"main path ran FedAvg at {shapes}, phase 3 "
-                             f"checked and timed {(MAIN_N, MAIN_T)}")
-    err = max(e for _, e in fedavg)
-    log(f"main path FedAvg at {(MAIN_N, MAIN_T)}, every round against the "
-        f"plain version: max abs err {err:.3e}")
+                             f"checked and timed the tree form at "
+                             f"{(MAIN_N, MAIN_T, MAIN_LEAVES)}")
+    err = max(e for _, e, _ in fedavg)
+    vec, tiles = (sum(v[i] for _, _, v in fedavg) for i in (0, 1))
+    log(f"main path FedAvg through the tree form at (N, T, leaves) "
+        f"{(MAIN_N, MAIN_T, MAIN_LEAVES)}, every round bit-exact against "
+        f"the plain version (max abs err {err:.3e}); {len(fedavg)} "
+        f"launches, {vec} of {tiles} tiles on the 16-byte path")
     return launches, err
 
 
@@ -898,6 +1154,15 @@ def update_rows(sched) -> int:
     return -(-t // (QSGD_BLOCK * qz.ROW_TILE)) * qz.ROW_TILE
 
 
+def _tensors(args):
+    """The tensors in a call's arguments, lists of leaves included."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif isinstance(a, (list, tuple)):
+            yield from _tensors(a)
+
+
 def expect(name: str, what: str, got: int, want: int, at_least=False):
     ok = got >= want if at_least else got == want
     if not ok:
@@ -939,6 +1204,7 @@ def event_path(device, errs: dict) -> dict:
     """Phase 7: each run with every launch count at 0 just before it and
     read just after. Returns the launches summed over the runs."""
     total = {k: 0 for k in KERNELS}
+    vec = tiles = 0  # the tree form's tiles on its 16-byte path, all tiles
     for name, argv in EVENT_RUNS:
         calls = {}
         torch.cuda.synchronize()
@@ -955,9 +1221,15 @@ def event_path(device, errs: dict) -> dict:
             expect(name, f"{k} launches vs recorded calls", got[k],
                    len(calls.get(k, [])))
             for args, out in calls.get(k, []):
-                if not all(a.is_cuda for a in args
-                           if isinstance(a, torch.Tensor)):
+                if not all(a.is_cuda for a in _tensors(args)):
                     raise AssertionError(f"{name}: {k} got a host tensor")
+                if k == "fedavg_reduce":
+                    if len(reduce_shape(args)) != 3:
+                        raise AssertionError(f"{name}: FedAvg stacked its "
+                                             f"trees instead of the tree "
+                                             f"form")
+                    v, a = vector_tiles(args[0])
+                    vec, tiles = vec + v, tiles + a
                 errs[k] = max(errs[k], HOLD[k](args, out))
         n_upd, n_agg = rep.n_client_updates, rep.n_aggregations
         strat = sched.strategy
@@ -996,6 +1268,8 @@ def event_path(device, errs: dict) -> dict:
             f"client_updates={n_upd} mean_staleness="
             f"{rep.mean_staleness:.4f} wall={wall:.3f}s; launches {got}; "
             f"updates quantised {q_upd:g}, dequantised {dq_upd:g}")
+    log(f"event-driven FedAvg: {total['fedavg_reduce']} launches, {vec} of "
+        f"{tiles} tiles on the 16-byte path")
     never = [k for k, v in total.items() if not v and k != "fedavg_reduce_q8"]
     if never:
         raise AssertionError(f"a kernel of the event-driven path never "
@@ -1116,6 +1390,8 @@ def q8_phase(card: str, device) -> int:
                              f"{tuple(args[0].shape)} block {args[3]}, phase "
                              f"3 timed {(Q8_N, Q8_T)} block {QSGD_BLOCK}")
     err = hold_q8(*args, out)
+    if on_card and not fr.q8_fast_path(args[0], args[3]):
+        raise AssertionError("fedavg_quantized took q8's general path")
     deq = ops.dequantize_flat_batch(packed, device=device)
     want, _ = fedavg([unflatten(x) for x in deq], weights)
     leaves = _tree.leaves(agg)

@@ -1,9 +1,9 @@
 """Time builds of the port's ``topk_rows``, ``fedavg_accumulate``,
-``quantize_blocks`` and ``dequantize_blocks`` kernels from several source
-trees side by side on the card, e.g. a parent commit's sources against the
-working tree's:
+``quantize_blocks``, ``dequantize_blocks``, ``fedavg_reduce`` and
+``fedavg_reduce_q8`` kernels from several source trees side by side on the
+card, e.g. a parent commit's sources against the working tree's:
 
-    git archive HEAD~1 src/repro_torch/kernels/csrc | tar -x -C build/parent
+    git archive HEAD~1 src/repro_torch | tar -x -C build/parent
     python scripts/kernel_ab.py \\
         parent=build/parent/src/repro_torch/kernels/csrc \\
         change=src/repro_torch/kernels/csrc
@@ -20,8 +20,21 @@ f32, ``torch.mul(q, s)``, the same-bytes casts ``x.to(torch.int8)`` and
 ``quantize.cu``). The quantize pair is timed once more with L2 emptied by
 a read, which leaves no dirty lines to write back. Each build's
 ``topk_rows``, ``quantize_blocks`` and ``dequantize_blocks`` are also
-broken down by kernel with ``torch.profiler`` (warm). Needs a CUDA card; a
-tree whose C interface lacks a symbol that ``kernels/topk.py``,
+broken down by kernel with ``torch.profiler`` (warm).
+
+FedAvg: every build's (N, T) ``fedavg_reduce`` at (5, 868,123) f32 and
+``fedavg_reduce_q8`` at (5, 868,352) block 256, held against this
+checkout's plain versions (bit-exact where the build flushes and sums in
+client order as they do, else at the reference's rtol 1e-4 / atol 1e-5),
+timed in turns cold and replayed from a CUDA graph (warm), beside this
+checkout's tree form on 5 ResNet56 trees (prepared tables), ``torch.mv``
+and an empty launch. Then ``ops.fedavg_aggregate`` on 5 ResNet56 trees
+runs in a subprocess on each tree's own ``src/`` (the directory three
+levels above its ``csrc``), in turns: synchronised host ms and the device
+µs per call that ``torch.profiler`` sums over its kernels, and then
+``fl.aggregator.merge_global`` of two ResNet56 trees (the event-driven
+server's merge), synchronised host ms. Needs a CUDA
+card; a tree whose C interface lacks a symbol that ``kernels/topk.py``,
 ``kernels/fedavg_reduce.py`` or ``kernels/quantize.py`` binds is reported
 by name and stops the run.
 """
@@ -29,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import statistics
 import subprocess
 import sys
@@ -42,8 +56,11 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
+from repro_torch import _tree  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import fedavg_reduce as fr  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
+from repro_torch.models.vision import ResNet, ResNetConfig  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
 P = ctypes.c_void_p
@@ -80,6 +97,10 @@ def build(label: str, csrc: Path) -> dict:
          I64)
     bind(label, libs["fedavg_reduce"], "fedavg_accumulate_f32",
          [P, P, ctypes.c_float, P, I64, P])
+    bind(label, libs["fedavg_reduce"], "fedavg_reduce_f32",
+         [P, P, P, I64, I64, P])
+    bind(label, libs["fedavg_reduce"], "fedavg_reduce_q8",
+         [P, P, P, P, I64, I64, I64, P])
     for sym in ("quantize_blocks_f32", "dequantize_blocks_f32"):
         bind(label, libs["quantize"], sym, [P, P, P, I64, I64, P])
     return {"topk": libs["topk"], "acc": libs["fedavg_reduce"],
@@ -131,6 +152,38 @@ def dequantize_call(lib, q, s):
     if rc:
         raise RuntimeError(f"dequantize_blocks launch failed ({rc})")
     return out
+
+
+def reduce_call(lib, x, w):
+    n, t = x.shape
+    out = torch.empty(t, dtype=torch.float32, device=x.device)
+    rc = lib.fedavg_reduce_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                               n, t, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"fedavg_reduce launch failed ({rc})")
+    return out
+
+
+def q8_call(lib, q, s, w, block):
+    n, t = q.shape
+    out = torch.empty(t, dtype=torch.float32, device=q.device)
+    rc = lib.fedavg_reduce_q8(q.data_ptr(), s.data_ptr(), w.data_ptr(),
+                              out.data_ptr(), n, t, block,
+                              torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"fedavg_reduce_q8 launch failed ({rc})")
+    return out
+
+
+def hold_close(what: str, got, want) -> str:
+    """'bit-exact', or the max abs error within the reference's bar."""
+    if cs.bits_equal(got, want):
+        return "bit-exact"
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"{what}: max abs err {err:.3e} beyond rtol "
+                             f"1e-4 / atol 1e-5")
+    return f"max abs err {err:.3e}"
 
 
 def time_clean(fn, reps: int = 30) -> float:
@@ -214,7 +267,132 @@ def main() -> int:
     fns["torch.add"] = lambda: torch.add(acc, upd, alpha=cs.ACC_W)
     show(f"fedavg_accumulate T={cs.MAIN_T}, bit-exact", in_turns(fns), card)
     quantize_ab(built, g, card)
+    fedavg_ab(built, g, card)
+    aggregate_ab(trees, card)
     return 0
+
+
+def fedavg_ab(built: dict, g, card: str) -> None:
+    """The (N, T) form and q8 of every build, and this checkout's tree
+    form, cold and graph-replayed, in turns."""
+    n, t = cs.MAIN_N, cs.MAIN_T
+    template, _ = _tree.flatten(ResNet(ResNetConfig(), device="cuda").init(
+        torch.Generator().manual_seed(1)))
+    leaves = cs.client_leaves(template, n, g, views=False)
+    x = torch.stack([torch.cat([l.reshape(-1) for l in c]) for c in leaves])
+    wd = torch.full((n,), 1.0 / n, device="cuda")
+    w = wd.cpu().numpy()
+    want = fr.fedavg_reduce_plain(x, wd)
+    for label, b in built.items():
+        print(f"{label} fedavg_reduce ({n}, {t}): "
+              f"{hold_close(label, reduce_call(b['acc'], x, wd), want)}",
+              flush=True)
+    call = fr.leaf_call(leaves, w)
+    out = torch.empty(call.plan.numel, device="cuda")
+    cs.hold_leaves(leaves, w, fr.leaf_views(call.plan,
+                                            fr.launch_leaves(call, out)))
+    fns = {label: (lambda b=b: reduce_call(b["acc"], x, wd))
+           for label, b in built.items()}
+    fns["this checkout's tree form"] = lambda: fr.launch_leaves(call, out)
+    fns["torch.mv"] = lambda: torch.mv(x.t(), wd)
+    fns["empty launch"] = cs.empty_launch
+    for timer, how in ((cs.time_cold, "cold, L2 flushed by writes"),
+                       (cs.time_graph, "graph-replayed, warm")):
+        show(f"fedavg_reduce ({n}, {t}) f32 as (N, T) rows, and the tree "
+             f"form on {n} ResNet56 trees, {how}", in_turns(fns, timer), card)
+
+    tq = cs.Q8_T
+    q = torch.randint(-127, 128, (n, tq), generator=g, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((n, tq // cs.QSGD_BLOCK), generator=g, device="cuda") \
+        * 1e-2
+    want = fr.fedavg_reduce_q8_plain(q, s, wd, cs.QSGD_BLOCK)
+    for label, b in built.items():
+        got = q8_call(b["acc"], q, s, wd, cs.QSGD_BLOCK)
+        print(f"{label} fedavg_reduce_q8 ({n}, {tq}): "
+              f"{hold_close(label, got, want)}", flush=True)
+    fns = {label: (lambda b=b: q8_call(b["acc"], q, s, wd, cs.QSGD_BLOCK))
+           for label, b in built.items()}
+    fns["empty launch"] = cs.empty_launch
+    for timer, how in ((cs.time_cold, "cold, L2 flushed by writes"),
+                       (cs.time_graph, "graph-replayed, warm")):
+        show(f"fedavg_reduce_q8 ({n}, {tq}) block {cs.QSGD_BLOCK}, {how}",
+             in_turns(fns, timer), card)
+
+
+AGGREGATE = r"""
+import json, statistics, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import ops
+from repro_torch.models.vision import ResNet, ResNetConfig
+model = ResNet(ResNetConfig(), device="cuda")
+trees = [model.init(torch.Generator().manual_seed(s)) for s in range(5)]
+w = [64.0] * 5
+for _ in range(3):
+    ops.fedavg_aggregate(trees, w)
+torch.cuda.synchronize()
+host = []
+for _ in range(30):
+    t0 = time.perf_counter()
+    ops.fedavg_aggregate(trees, w)
+    torch.cuda.synchronize()
+    host.append((time.perf_counter() - t0) * 1e3)
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(5):
+        ops.fedavg_aggregate(trees, w)
+    torch.cuda.synchronize()
+dev = {}
+for e in prof.key_averages():
+    us = getattr(e, "device_time_total", None)
+    us = getattr(e, "cuda_time_total", 0.0) if us is None else us
+    if us > 0:
+        dev[e.key[:60]] = us / 5
+from repro_torch.fl.aggregator import merge_global
+for _ in range(3):
+    merge_global(trees[0], trees[1], 0.5)
+torch.cuda.synchronize()
+merge = []
+for _ in range(30):
+    t0 = time.perf_counter()
+    merge_global(trees[0], trees[1], 0.5)
+    torch.cuda.synchronize()
+    merge.append((time.perf_counter() - t0) * 1e3)
+print(json.dumps({"host_ms": statistics.median(host), "host_ms_all": host,
+                  "device_us": sum(dev.values()), "kernels": dev,
+                  "merge_ms": statistics.median(merge)}))
+"""
+
+
+def aggregate_ab(trees: dict, card: str) -> None:
+    """``ops.fedavg_aggregate`` on 5 ResNet56 trees, each tree's own
+    ``src/`` in its own subprocess, in turns (in order, then reversed)."""
+    order = list(trees)
+    got = {label: [] for label in order}
+    for label in order + order[::-1]:
+        src = (ROOT / trees[label]).resolve().parents[2]
+        proc = subprocess.run([sys.executable, "-c", AGGREGATE, str(src)],
+                              capture_output=True, text=True, cwd=ROOT)
+        if proc.returncode:
+            raise RuntimeError(f"{label}: fedavg_aggregate failed\n"
+                               f"{proc.stdout}{proc.stderr}")
+        got[label].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for label, runs in got.items():
+        print(f"ops.fedavg_aggregate, 5 x ResNet56 trees, {label} "
+              f"({trees[label]}): host ms (median of 30, synchronised) "
+              + " / ".join(f"{r['host_ms']:.3f}" for r in runs)
+              + "; device µs per call (torch.profiler, summed over kernels) "
+              + " / ".join(f"{r['device_us']:.3f}" for r in runs)
+              + f" ({card})", flush=True)
+        print(f"fl.aggregator.merge_global, 2 ResNet56 trees at lam 0.5, "
+              f"{label}: host ms (median of 30, synchronised) "
+              + " / ".join(f"{r['merge_ms']:.3f}" for r in runs)
+              + f" ({card})", flush=True)
+        print(f"  {label} kernels per call (µs): " + "; ".join(
+            f"{k} {v:.3f}" for k, v in sorted(runs[0]["kernels"].items(),
+                                             key=lambda kv: -kv[1])),
+              flush=True)
 
 
 def quantize_ab(built: dict, g, card: str) -> None:

@@ -6,6 +6,10 @@ residual is ``fed - recon``, with ``recon`` dequantised on that device
 from the device ``q`` and scales of the same launch; the host copy of
 ``q`` and scales is only the wire form. The numbers are the reference's,
 which dequantises the host copy.
+
+The error-feedback add ``f + error`` and the new residual ``fed - recon``
+are flushed as XLA flushes subnormals when it runs the reference on the
+CPU (``kernels/quantize.py``'s rule): inputs and results alike.
 """
 from __future__ import annotations
 
@@ -15,10 +19,21 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.quantize import flush_subnormals
 
 
 class QuantState(NamedTuple):
     error: torch.Tensor  # flat f32 residual carried between rounds
+
+
+def error_fed(flat, state: Optional[QuantState]) -> torch.Tensor:
+    """The vector a codec compresses: ``flat``, plus the carried residual
+    where a state is given, flushed as the reference's XLA add is."""
+    flat = torch.as_tensor(flat)
+    if state is None:
+        return flat
+    return flush_subnormals(flush_subnormals(flat)
+                            + flush_subnormals(state.error))
 
 
 def qsgd_init(example_tree) -> QuantState:
@@ -41,15 +56,14 @@ def qsgd_compress_flat_batch(flats, states, *, block: int = 256):
     dequantize launch for the error-feedback residuals, one host copy of
     the wire form; bit-identical per item to ``qsgd_compress`` run message
     by message."""
-    fed = [torch.as_tensor(f) if s is None else torch.as_tensor(f) + s.error
-           for f, s in zip(flats, states)]
+    fed = [error_fed(f, s) for f, s in zip(flats, states)]
     q, s, spans = ops.quantize_rows_batch(fed, block=block)
     ef_idx = [i for i, st in enumerate(states) if st is not None]
     new_states = [None] * len(flats)
     if ef_idx:
         recons = ops.dequantize_rows(q, s, [spans[i] for i in ef_idx])
         for i, recon in zip(ef_idx, recons):
-            new_states[i] = QuantState(error=fed[i] - recon)
+            new_states[i] = QuantState(error=flush_subnormals(fed[i] - recon))
     return ops.packed_on_host(q, s, spans, block), new_states
 
 

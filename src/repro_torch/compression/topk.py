@@ -8,6 +8,9 @@ reference's bit for bit. The error-feedback residual stays on the
 update's device: ``fed - recon`` is ``fed`` with the selected entries set
 to 0, exactly, so it is computed as a copy of ``fed`` with zeros
 scattered at ``idx``, without a round trip through the host wire copy.
+``fed`` itself is the flushed ``f + error`` of ``qsgd.error_fed`` where a
+state is given, as the reference's XLA add is; without one, ``f`` goes to
+the kernel as it is (subnormals kept, as ``jax.lax.top_k`` keeps them).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.compression.qsgd import QuantState
+from repro_torch.compression.qsgd import QuantState, error_fed
 from repro_torch.kernels import ops
 
 
@@ -34,8 +37,7 @@ def topk_compress_flat_batch(flats, states, *, k_frac: float):
     per-item payloads and error-feedback transitions are bit-identical to
     ``topk_compress`` run message by message. Payloads lie on the flats'
     device."""
-    fed = [torch.as_tensor(f) if s is None else torch.as_tensor(f) + s.error
-           for f, s in zip(flats, states)]
+    fed = [error_fed(f, s) for f, s in zip(flats, states)]
     payloads = ops.topk_flat_batch(fed, k_frac=k_frac)
     new_states = [None] * len(flats)
     for i, s in enumerate(states):

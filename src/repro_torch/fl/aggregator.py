@@ -12,6 +12,11 @@
 ``staleness_weight``  — FedBuff-style polynomial discount for async modes.
 ``merge_global``      — staleness-damped server update (event-driven modes).
 Aggregation compute time is measured for the Fig 5 'aggregation' bars.
+
+``merge_global`` and ``StreamingAccumulator.merged`` flush subnormal
+inputs and results as XLA flushes them when it runs the reference's
+arithmetic on the CPU (``kernels/quantize.py``'s rule: ``mul_ftz``,
+``div_ftz``).
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import torch
 from repro_torch import _tree
 from repro_torch._device import synchronize
 from repro_torch.kernels import ops
+from repro_torch.kernels.quantize import div_ftz, mul_ftz
+from repro_torch.kernels.quantize import flush_subnormals as _flush
 
 
 def fedavg(updates: Sequence, weights):
@@ -91,9 +98,7 @@ class StreamingAccumulator:
         if self.acc is None or self.sum_eff <= 0:
             return None, self.agg_s
         t0 = time.perf_counter()
-        sum_eff = torch.tensor(self.sum_eff, dtype=torch.float32,
-                               device=self.acc.device)
-        tree = self.unflatten(self.acc / sum_eff)
+        tree = self.unflatten(div_ftz(self.acc, self.sum_eff))
         synchronize(_tree.leaves(tree)[0])
         return tree, self.agg_s + time.perf_counter() - t0
 
@@ -131,5 +136,13 @@ def merge_global(global_tree, merged_tree, lam: float):
     lam = min(max(lam, 0.0), 1.0)
     if global_tree is None or lam >= 1.0 - 1e-12:
         return merged_tree
-    return _tree.map(lambda g, m: (1.0 - lam) * g + lam * m,
-                     global_tree, merged_tree)
+    # one flat vector per tree: a few launches per merge, not a few per leaf
+    gl, treedef = _tree.flatten(global_tree)
+    ml, mdef = _tree.flatten(merged_tree)
+    if mdef != treedef:
+        raise ValueError("merge_global: trees have different structures")
+    g, m = (torch.cat([l.float().reshape(-1) for l in ls]) for ls in (gl, ml))
+    out = _flush(mul_ftz(g, 1.0 - lam) + mul_ftz(m, lam))
+    return _tree.unflatten(treedef, [
+        v.view(l.shape).to(l.dtype)
+        for v, l in zip(out.split([l.numel() for l in gl]), gl)])

@@ -216,19 +216,28 @@ def quantize_pytree(tree, *, block: int = 256):
 
 
 def _normalised(weights) -> np.ndarray:
-    w = np.asarray(weights, np.float32)
-    return w / np.sum(w, dtype=np.float32)
+    """``weights / sum(weights)`` in f32, subnormal weights, sum and
+    quotients flushed as XLA flushes them when the reference normalises
+    (``quantize.div_ftz``)."""
+    w = qz.flush_subnormals(torch.as_tensor(np.asarray(weights, np.float32)))
+    total = np.sum(w.numpy(), dtype=np.float32)
+    return qz.div_ftz(w, qz.flush_subnormals(torch.as_tensor(total))).numpy()
 
 
 def fedavg_aggregate(updates: Sequence, weights):
-    """Weighted average of N trees through the ``fedavg_reduce`` kernel.
+    """Weighted average of N trees through the ``fedavg_reduce`` kernel's
+    tree form, which reads every client's leaves in place (one launch on
+    the card; on the CPU its plain version flattens and stacks them).
     Weights are normalised in f32 on the host, as the reference does.
-    Returns a tree like updates[0]."""
+    Returns a tree like updates[0], its leaves in updates[0]'s dtypes."""
     w = _normalised(weights)
-    flats, unflatten = zip(*[flatten_pytree(u) for u in updates])
-    stacked = torch.stack(flats)  # (N, T); the kernel masks T's tail
-    agg = fr.fedavg_reduce(stacked, torch.from_numpy(w).to(stacked.device))
-    return unflatten[0](agg)
+    first, treedef = _tree.flatten(updates[0])
+    leaves = [[l if isinstance(l, torch.Tensor) else torch.as_tensor(l)
+               for l in ls]
+              for ls in [first] + [_tree.leaves(u) for u in updates[1:]]]
+    agg = fr.fedavg_reduce_leaves(leaves, w)
+    return _tree.unflatten(treedef, [a.to(l.dtype)
+                                     for a, l in zip(agg, leaves[0])])
 
 
 def fedavg_aggregate_q8(packed_list: Sequence[dict], weights, unflatten, *,

@@ -22,6 +22,17 @@ versions and the kernels alike:
 The reference's NumPy twin ``ref.quantize_blocks_np`` does not flush; it
 agrees with these rules on inputs without subnormals.
 
+Elsewhere in the port (FedAvg, the server merge, the codecs' error
+feedback) ``mul_ftz`` and ``div_ftz`` give a product or quotient exactly as
+XLA's CPU flush does: subnormal inputs read as zeros of their sign, and
+the result becomes one when its value rounded to 24 bits with an
+unbounded exponent lies below ``FLT_MIN`` (tininess after rounding). A
+product whose exact value lies within 2**-25 of ``FLT_MIN`` below it
+would round up to ``FLT_MIN`` in IEEE arithmetic and is flushed all the
+same; the H100's ``mul.rn.ftz.f32`` flushes by the same rule (PERF.md).
+A sum of two flushed f32 values below ``FLT_MIN`` is exact, so for
+additions ``flush_subnormals`` of the IEEE sum is the same rule.
+
 Dispatch is by the device of the tensor given: a CPU tensor goes to the
 plain version; a CUDA tensor goes to the hand-written Hopper kernels in
 ``csrc/quantize.cu`` (built with ``nvcc`` at first use) or raises.
@@ -33,7 +44,9 @@ asked with ``fast_path`` (see ``csrc/quantize.cu``).
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -54,6 +67,51 @@ def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
     """f32 ``x`` with every subnormal value replaced by a zero of its sign."""
     return torch.where(x.abs() < FLT_MIN,
                        torch.zeros_like(x).copysign(x), x)
+
+
+# |exact| below this rounds, with 24 bits and an unbounded exponent, to less
+# than FLT_MIN: FLT_MIN - 2**-151, halfway to the next f32 below FLT_MIN
+_TINY = FLT_MIN * (1 - 2.0 ** -25)
+
+
+def _flush_exact(exact: torch.Tensor) -> torch.Tensor:
+    """The f64 ``exact`` rounded to f32, a zero of its sign where XLA's
+    flush makes it one."""
+    r = exact.float()
+    return torch.where(exact.abs() < _TINY, torch.zeros_like(r).copysign(r),
+                       r)
+
+
+def _operand(v, device) -> torch.Tensor:
+    """``v`` as f32, flushed, widened to f64 on ``device``. A host number
+    is rounded and flushed on the host and filled in on the device, so no
+    host-to-device copy waits for the card."""
+    if isinstance(v, torch.Tensor):
+        return flush_subnormals(v.to(device, torch.float32)).double()
+    v = float(np.float32(v))
+    return torch.full((), math.copysign(0.0, v) if abs(v) < FLT_MIN else v,
+                      dtype=torch.float64, device=device)
+
+
+def _device(a, b) -> torch.device:
+    return (a if isinstance(a, torch.Tensor) else b).device
+
+
+def mul_ftz(a, b) -> torch.Tensor:
+    """f32 ``a * b`` with XLA's flush, ``a`` or ``b`` a tensor. The product
+    of two f32 values is exact in f64, and rounding it to f32 once is the
+    IEEE product."""
+    dev = _device(a, b)
+    return _flush_exact(_operand(a, dev) * _operand(b, dev))
+
+
+def div_ftz(a, b) -> torch.Tensor:
+    """f32 ``a / b`` with XLA's flush, ``a`` or ``b`` a tensor. The f64
+    quotient rounded to f32 is the IEEE f32 quotient (53 >= 2 * 24 + 2
+    bits); ``b`` is a tensor on the device, never a host scalar, which
+    torch's CUDA division would turn into a multiply by its reciprocal."""
+    dev = _device(a, b)
+    return _flush_exact(_operand(a, dev) / _operand(b, dev))
 
 
 def quantize_blocks_plain(x: torch.Tensor):

@@ -5,9 +5,10 @@ none. On a machine without a card every test skips.
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances:
-* ``fedavg_reduce``: both sides accumulate in f32 over the same products,
-  in a different order, so the reference bar (rtol 1e-4 / atol 1e-5)
-  holds for f32 and bf16 inputs alike;
+* ``fedavg_reduce`` (the (N, T) form and the tree form, which reads client
+  trees in place): bit-exact, f32 and bf16, aligned and misaligned
+  leaves, subnormal rows included: the kernel and the plain version sum
+  the clients in order with the same rounded operations and flushes;
 * ``quantize_blocks``: the kernel and the plain version take the same IEEE
   operations on the same card, with the same subnormal flushes, so int8
   and scales are bit-exact, on both of the kernel's paths;
@@ -17,8 +18,8 @@ Tolerances:
 * ``topk_rows``: idx equal and vals equal bit for bit (compared as int32
   views: ``torch.equal`` calls -0.0 equal to +0.0), ties and signed zeros
   included;
-* ``fedavg_reduce_q8``: rtol 1e-4 / atol 1e-5, the reference's bar (both
-  sum f32 products, in different orders).
+* ``fedavg_reduce_q8``: bit-exact on both of its paths (the path is
+  asserted), for the same reason as ``fedavg_reduce``.
 """
 import numpy as np
 import pytest
@@ -53,9 +54,8 @@ def test_kernel_matches_plain(cuda, n, t, dtype):
     torch.cuda.synchronize()
     assert fr.LAUNCHES == before + 1
     assert out.dtype == torch.float32 and out.shape == (t,)
-    np.testing.assert_allclose(out.cpu().numpy(),
-                               fr.fedavg_reduce_plain(x, w).cpu().numpy(),
-                               rtol=1e-4, atol=1e-5)
+    want = fr.fedavg_reduce_plain(x, w)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 def test_kernel_is_deterministic(cuda):
@@ -75,10 +75,9 @@ def test_aggregate_on_card_matches_cpu(cuda):
         [{"w": t["w"].to(cuda), "b": [t["b"][0].to(cuda)]} for t in trees],
         [1, 2, 3])
     assert got["w"].is_cuda
-    np.testing.assert_allclose(got["w"].cpu().numpy(), want["w"].numpy(),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(got["b"][0].cpu().numpy(),
-                               want["b"][0].numpy(), rtol=1e-4, atol=1e-5)
+    # the same IEEE operations in the same order on both devices
+    for g, v in ((got["w"], want["w"]), (got["b"][0], want["b"][0])):
+        assert torch.equal(g.cpu().view(torch.int32), v.view(torch.int32))
 
 
 def test_kernel_rejects_wrong_dtype(cuda):
@@ -346,15 +345,14 @@ def test_q8_matches_plain(cuda, n, t, block):
     s = (torch.rand((n, t // block), generator=g) * 1e-2).to(cuda)
     w = torch.rand((n,), generator=g).to(cuda)
     w = w / w.sum()
+    assert fr.q8_fast_path(q, block)  # block % 16 == 0, q aligned
     before = fr.Q8_LAUNCHES
     out = fr.fedavg_reduce_q8(q, s, w, block)
     torch.cuda.synchronize()
     assert fr.Q8_LAUNCHES == before + 1
     assert out.dtype == torch.float32 and out.shape == (t,)
-    np.testing.assert_allclose(
-        out.cpu().numpy(),
-        fr.fedavg_reduce_q8_plain(q, s, w, block).cpu().numpy(),
-        rtol=1e-4, atol=1e-5)
+    want = fr.fedavg_reduce_q8_plain(q, s, w, block)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 def test_fedavg_quantized_on_card_matches_cpu(cuda):
@@ -371,5 +369,218 @@ def test_fedavg_quantized_on_card_matches_cpu(cuda):
     got, _ = fedavg_quantized(packed, [1, 2, 3], cuda_unflatten)
     for k in want:
         assert got[k].is_cuda
-        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(),
-                                   rtol=1e-4, atol=1e-5)
+        assert torch.equal(got[k].cpu().view(torch.int32),
+                           want[k].view(torch.int32))
+
+
+# -- the tree form of fedavg_reduce, and the flushes -----------------------
+
+def _tiny(g, shape, device):
+    """Both signs, magnitudes spanning 1e-46-1e-33, a few normal values."""
+    mag = 10.0 ** (torch.rand(shape, generator=g) * 13 - 46)
+    x = (mag * torch.randn(shape, generator=g).sign()).float()
+    x.view(-1)[::97] = torch.randn(x.view(-1)[::97].shape, generator=g)
+    return x.to(device)
+
+
+def _model_leaves(model: str, device):
+    """One full-width template tree's leaves (ResNet56: 169, MobileNetV3:
+    151)."""
+    from repro_torch import _tree
+    from repro_torch.models.vision import (MobileNetConfig, MobileNetV3,
+                                           ResNet, ResNetConfig)
+    m = (ResNet(ResNetConfig(), device=device) if model == "resnet56"
+         else MobileNetV3(MobileNetConfig(), device=device))
+    return _tree.leaves(m.init(torch.Generator().manual_seed(0)))
+
+
+def _clients(template, n, dtype, layout, kind, g, device):
+    """n clients' leaves shaped like ``template``: separate tensors, or
+    (layout "views") views of one flat vector at the leaves' running
+    offsets, as the codecs decode them; random normal or (kind
+    "subnormal") magnitudes across the subnormal range."""
+    out = []
+    for _ in range(n):
+        sizes = [l.numel() for l in template]
+        flat = (torch.randn(sum(sizes), generator=g) if kind == "randn"
+                else _tiny(g, (sum(sizes),), "cpu")).to(device, dtype)
+        if layout == "separate":
+            out.append([p.clone().view(l.shape) for p, l in
+                        zip(flat.split(sizes), template)])
+        else:
+            out.append([p.view(l.shape) for p, l in
+                        zip(flat.split(sizes), template)])
+    return out
+
+
+def _hold_leaves(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("model", ["resnet56", "mobilenetv3"])
+@pytest.mark.parametrize("n", [1, 5, 25])
+@pytest.mark.parametrize("layout", ["separate", "views"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tree_kernel_matches_plain(cuda, model, n, layout, dtype):
+    g = torch.Generator(device="cpu").manual_seed(n + len(model))
+    template = _model_leaves(model, cuda)
+    leaves = _clients(template, n, dtype, layout, "randn", g, cuda)
+    if layout == "views":  # most leaves off 16-byte alignment
+        assert any(l.data_ptr() % 16 for l in leaves[0])
+    w = torch.rand((n,), generator=g) + 0.5
+    w = (w / w.sum()).numpy()
+    before = fr.LAUNCHES
+    got = fr.fedavg_reduce_leaves(leaves, w)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES == before + 1
+    _hold_leaves(got, fr.fedavg_reduce_leaves_plain(leaves, w))
+
+
+@pytest.mark.parametrize("layout", ["separate", "views"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tree_kernel_flushes_subnormals(cuda, layout, dtype):
+    g = torch.Generator(device="cpu").manual_seed(9)
+    template = _model_leaves("resnet56", cuda)
+    leaves = _clients(template, 5, dtype, layout, "subnormal", g, cuda)
+    w = np.asarray([0.1, 0.2, 0.3, 0.15, 0.25], np.float32)
+    got = fr.fedavg_reduce_leaves(leaves, w)
+    _hold_leaves(got, fr.fedavg_reduce_leaves_plain(leaves, w))
+    flat = torch.cat([a.reshape(-1) for a in got]).abs()
+    assert not ((flat > 0) & (flat < FMIN)).any()
+    assert (flat > 0).any()
+
+
+def test_tree_kernel_c1_rows_and_partial_sums(cuda):
+    """C1's rows give exact zeros; a subnormal partial sum is flushed
+    before the next client's term, in client order."""
+    x = torch.zeros((4, 1029))
+    x[0], x[1] = 1e-30, 1e-39
+    x[1:, 7] = torch.tensor([1.5 * FMIN, -FMIN, FMIN])
+    leaves = [[r[:5].clone().to(cuda), r[5:].clone().to(cuda)] for r in x]
+    w = np.asarray([2e-9, 1.0, 1.0, 1.0], np.float32)
+    got = fr.fedavg_reduce_leaves(leaves, w)
+    _hold_leaves(got, fr.fedavg_reduce_leaves_plain(leaves, w))
+    assert float(got[1][2]) == FMIN
+    assert not got[0].any() and int((got[1] != 0).sum()) == 1
+
+
+def test_tree_kernel_is_deterministic(cuda):
+    g = torch.Generator(device="cpu").manual_seed(3)
+    template = _model_leaves("resnet56", cuda)
+    leaves = _clients(template, 7, torch.float32, "views", "randn", g, cuda)
+    w = np.full(7, 1 / 7, np.float32)
+    _hold_leaves(fr.fedavg_reduce_leaves(leaves, w),
+                 fr.fedavg_reduce_leaves(leaves, w))
+
+
+def test_aggregate_on_card_takes_the_tree_form(cuda):
+    """One launch per call, no stack: the result's leaves are views of one
+    buffer on the card, in updates[0]'s dtypes."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    trees = [{"a": torch.randn((33, 7), generator=g),
+              "b": torch.randn((5,), generator=g).to(torch.bfloat16)}
+             for _ in range(4)]
+    want = ops.fedavg_aggregate(trees, [1, 2, 3, 4])
+    before = fr.LAUNCHES
+    got = ops.fedavg_aggregate([{k: v.to(cuda) for k, v in t.items()}
+                                for t in trees], [1, 2, 3, 4])
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES == before + 1
+    for k in want:
+        assert got[k].is_cuda and got[k].dtype == want[k].dtype
+        assert torch.equal(got[k].cpu().float().view(torch.int32),
+                           want[k].float().view(torch.int32))
+
+
+def test_tree_kernel_rejects_what_it_cannot_take(cuda):
+    a = [torch.randn((4, 6), device=cuda), torch.randn(5, device=cuda)]
+    b = [torch.randn((4, 6), device=cuda), torch.randn(5)]  # one on the host
+    with pytest.raises(ValueError):
+        fr.fedavg_reduce_leaves([a, b], [0.5, 0.5])
+    c = [a[0].t().contiguous().t(), a[1]]  # not contiguous
+    with pytest.raises(ValueError):
+        fr.fedavg_reduce_leaves([a, c], [0.5, 0.5])
+    with pytest.raises(TypeError):
+        fr.fedavg_reduce_leaves([[l.half() for l in a]] * 2, [0.5, 0.5])
+
+
+# block % 4 != 0, or q off 4-byte alignment: the general path
+@pytest.mark.parametrize("n,t,block,offset", [
+    (5, 868_352, 256, 0), (5, 868_352, 256, 1), (3, 2048 + 256, 128, 0),
+    (3, 2000, 100, 0), (2, 63, 7, 0), (3, 2002, 2, 0), (1, 256, 16, 0),
+    (4, 4096, 256, 2), (4, 4096, 256, 4)])
+def test_q8_paths_match_plain(cuda, n, t, block, offset):
+    g = torch.Generator(device="cpu").manual_seed(n + t + block + offset)
+    buf = torch.randint(-127, 128, (n * t + offset,), generator=g,
+                        dtype=torch.int8).to(cuda)
+    q = buf[offset:].view(n, t)
+    s = _tiny(g, (n, t // block), "cpu").abs().mul(1e4).to(cuda)
+    s[:, ::3] = torch.rand(s[:, ::3].shape, generator=g).to(cuda) * 1e-2
+    s[0, 0] = FMIN  # times w < 1: a subnormal product
+    w = torch.rand((n,), generator=g).to(cuda)
+    w = w / w.sum()
+    fast = block % 4 == 0 and t % 4 == 0 and offset % 4 == 0
+    assert fr.q8_fast_path(q, block) == fast
+    out = fr.fedavg_reduce_q8(q, s, w, block)
+    want = fr.fedavg_reduce_q8_plain(q, s, w, block)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    flat = out.abs()
+    assert not ((flat > 0) & (flat < FMIN)).any()
+
+
+def test_accumulate_flushes_subnormals(cuda):
+    g = torch.Generator(device="cpu").manual_seed(11)
+    for t, off in ((868_123, 0), (4097, 1)):
+        acc = _tiny(g, (t + off,), cuda)[off:]
+        x = _tiny(g, (t + off,), cuda)[off:]
+        for w in (0.37, 1e-39, 1.0):
+            out = fr.fedavg_accumulate(acc, x, w)
+            want = fr.fedavg_accumulate_plain(acc, x, w)
+            assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+            flat = out.abs()
+            assert not ((flat > 0) & (flat < FMIN)).any()
+
+
+def _window(n, w, g):
+    """(n,) f32 whose products with the f32 ``w`` lie within 2**-21 of
+    FLT_MIN, some in the window just below it that IEEE rounds up to
+    FLT_MIN and XLA's flush (and the kernels' mul.rn.ftz.f32) makes 0."""
+    target = FMIN * (1 + (torch.rand(n, generator=g, dtype=torch.float64)
+                          * 2 - 1) * 2.0 ** -21)
+    sign = torch.randint(0, 2, (n,), generator=g) * 2 - 1
+    return (target / float(w) * sign).float()
+
+
+def test_kernels_flush_in_the_rounding_window(cuda):
+    """Products just below FLT_MIN: every kernel agrees with its plain
+    version (``quantize.mul_ftz``'s rule) bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(12)
+    w = np.asarray([0.75, 0.25], np.float32)
+    x = torch.stack([_window(4099, wi, g) for wi in w])
+    leaves = [[r[:3].clone().to(cuda), r[3:].clone().to(cuda)] for r in x]
+    got = fr.fedavg_reduce_leaves(leaves, w)
+    want = fr.fedavg_reduce_leaves_plain(leaves, w)
+    _hold_leaves(got, want)
+    # products IEEE rounds up to FLT_MIN and the rule flushes
+    assert ((x[0] * 0.75).abs().eq(FMIN)
+            & qz.mul_ftz(x[0], 0.75).eq(0)).any()
+    wd = torch.from_numpy(w).to(cuda)
+    xs = x.to(cuda)
+    out = fr.fedavg_reduce(xs, wd)
+    assert torch.equal(out.view(torch.int32),
+                       fr.fedavg_reduce_plain(xs, wd).view(torch.int32))
+    acc = torch.zeros(4099, device=cuda)
+    out = fr.fedavg_accumulate(acc, xs[0], 0.75)
+    assert torch.equal(out.view(torch.int32), fr.fedavg_accumulate_plain(
+        acc, xs[0], 0.75).view(torch.int32))
+    q = torch.ones((2, 4096), dtype=torch.int8, device=cuda)
+    s = torch.stack([_window(16, wi, g).abs() for wi in w]).to(cuda)
+    for qq in (q, q.view(-1)[:8190].view(2, 4095)):  # both paths
+        block = 256 if qq.shape[1] == 4096 else 273
+        ss = s[:, :qq.shape[1] // block].contiguous()
+        out = fr.fedavg_reduce_q8(qq.contiguous(), ss, wd, block)
+        want = fr.fedavg_reduce_q8_plain(qq.contiguous(), ss, wd, block)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
