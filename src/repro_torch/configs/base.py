@@ -1,10 +1,99 @@
-"""Port of ``src/repro/configs/base.py``: ``FLConfig`` and its one
-conversion to a ``Scenario``. ``ModelConfig`` and the LM-stack configs
-arrive with the LM slice.
+"""Port of ``src/repro/configs/base.py``: ``ModelConfig`` (the LM
+core's architecture description, without ``param_count``, which goes
+through the model registry: ROADMAP item 15), ``FLConfig`` and its one
+conversion to a ``Scenario``. The shape, mesh and training configs arrive
+with the launch layer.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description for the LM families (dense/moe/ssm/hybrid/audio/vlm)."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # attention details
+    qk_norm: bool = False
+    causal: bool = True
+    rope_theta: float = 10_000.0
+
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_interleave: int = 1  # MoE every k-th layer (1 = every layer)
+    d_ff_dense: int = 0  # FFN width of non-MoE layers when interleaved
+    num_shared_experts: int = 0
+
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    attn_every: int = 0  # zamba2: shared attention block every k mamba blocks
+    shared_attn_lora_rank: int = 0
+    slstm_every: int = 0  # xlstm: sLSTM block every k blocks (others mLSTM)
+    mlstm_chunk: int = 256
+
+    # VLM
+    cross_attn_every: int = 0  # cross-attention layer every k layers
+    num_image_tokens: int = 0
+    vision_d_model: int = 0
+
+    # audio (encoder-only): inputs are precomputed frame embeddings
+    external_embeddings: bool = False
+
+    # embeddings / io
+    tie_embeddings: bool = False
+    mlp_gelu: bool = False  # 2-matrix GELU MLP (ViT/BERT) instead of SwiGLU
+
+    # numerics
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    norm_eps: float = 1e-5
+
+    # memory policy
+    remat: str = "full"  # none | dots | full
+    attn_chunk: int = 1024  # flash-style KV chunking for prefill/train
+    block_causal: bool = True  # lower-triangular block schedule (skip masked blocks)
+
+    # MoE dispatch
+    moe_group_size: int = 2048
+    capacity_factor: float = 1.25
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        assert self.num_heads % max(self.num_kv_heads, 1) == 0, (
+            f"{self.name}: num_heads must be divisible by num_kv_heads")
+
+    # ------------------------------------------------------------------
+    @property
+    def is_encoder_only(self) -> bool:
+        return not self.causal
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+    def moe_layer_mask(self) -> Sequence[bool]:
+        """True for layers that carry a MoE FFN."""
+        if self.num_experts == 0:
+            return [False] * self.num_layers
+        k = self.moe_interleave
+        # MoE on layers (k-1, 2k-1, ...) — matches Llama-4 style interleaving.
+        return [(i % k) == (k - 1) for i in range(self.num_layers)]
 
 
 @dataclasses.dataclass(frozen=True)

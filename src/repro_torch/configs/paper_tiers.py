@@ -66,11 +66,13 @@ TIER_ORDER = ["small", "medium", "big", "large"]
 
 
 def build_tier_model(name: str, device=None):
-    """Returns (model_obj, init_fn(generator)->params). The Small tier's
-    ResNet56 and the Medium tier's MobileNetV3 are ported; the Big and
-    Large tiers' models arrive with later slices."""
+    """Returns (model_obj, init_fn(generator)->params): ResNet56,
+    MobileNetV3, DistilBERT (its classification head is a separate tree:
+    ``model.init_head``) and ViT-Large."""
+    from repro_torch.models.bert import BertConfig, DistilBert
     from repro_torch.models.vision import (MobileNetConfig, MobileNetV3,
-                                           ResNet, ResNetConfig)
+                                           ResNet, ResNetConfig, ViT,
+                                           ViTConfig)
 
     if name == "small":
         m = ResNet(ResNetConfig(), device=device)
@@ -78,8 +80,10 @@ def build_tier_model(name: str, device=None):
     if name == "medium":
         m = MobileNetV3(MobileNetConfig(), device=device)
         return m, m.init
-    if name in TIERS:
-        raise NotImplementedError(
-            f"tier '{name}' ({TIERS[name].model}) is not ported to "
-            f"repro_torch yet")
+    if name == "big":
+        m = DistilBert(BertConfig(), device=device)
+        return m, m.init
+    if name == "large":
+        m = ViT(ViTConfig(), device=device)
+        return m, m.init
     raise KeyError(name)

@@ -44,7 +44,11 @@ from repro_torch.scenario import (TOPOLOGY_PRESETS, Scenario, ScenarioError,
 
 LEARNING_RATE = 0.05
 _VERTICAL = ("--mode vertical: vertical FL is not yet ported to repro_torch "
-             "(ROADMAP.md queue A, item 13)")
+             "(ROADMAP.md queue A, item 14)")
+_BIG_LIVE = ("tier 'big' (DistilBERT) cannot train in a live round: the "
+             "reference's live path cannot train it either, since "
+             "DistilBert.loss takes a classification head that the training "
+             "step never passes, and the silos hold images, not tokens")
 
 
 def make_train_fn(model):
@@ -99,6 +103,8 @@ def build_deployment(fl_cfg: FLConfig, *, tier: str = "small",
         from repro_torch.models.vision import ResNet, ResNetConfig
         model = ResNet(ResNetConfig(blocks_per_stage=2, num_classes=8,
                                     image_size=16), device=device)
+    elif tier == "big":
+        raise NotImplementedError(_BIG_LIVE)
     else:
         model, _ = build_tier_model(tier, device=device)
     params = model.init(torch.Generator().manual_seed(fl_cfg.seed))

@@ -1,1 +1,2 @@
-"""Port of ``src/repro/models/``: the paper-tier models (ResNet56 so far)."""
+"""Port of ``src/repro/models/``: the paper-tier models (ResNet56,
+MobileNetV3, DistilBERT, ViT-Large) and the dense transformer core."""

@@ -1,8 +1,303 @@
-"""Port of ``src/repro/models/layers.py``, limited to the loss the
-vision models use; the LM layers arrive with the LM slice."""
+"""Port of ``src/repro/models/layers.py``: the dense transformer core's
+building blocks (parameter init, RMS norm, RoPE, the blockwise
+``flash_attention``, attention, the MLP, embeddings) and the loss. MoE,
+cross-attention, prefill and decode arrive with ROADMAP item 15.
+
+Parameters are nested dicts of tensors with the reference's keys, shapes
+and dtypes; the reference's logical axes (for its sharding rules) have no
+counterpart here. ``flash_attention`` is plain jnp in the reference, not
+a Pallas kernel, so here it is plain torch with the same chunking, mask
+value and merge.
+"""
 from __future__ import annotations
 
+import functools
+import math
+from typing import Optional
+
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """A config's dtype name ("float32", "bfloat16") as a torch dtype."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype '{name}'")
+    return dt
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+class Init:
+    """Draws a model's parameters from a CPU ``torch.Generator`` and moves
+    each to ``device``; on the ``meta`` device it makes shapes and dtypes
+    only and draws nothing (the reference's ``abstract_init``).
+
+    ``stacked(n)`` gives an ``Init`` whose every leaf has ``n`` prepended
+    to its shape (the reference's ``stack_init``: one leaf per parameter,
+    its layers on the leading axis). ``jax.random`` streams cannot be
+    reproduced here, so only shapes, dtypes and the scale of each draw
+    match the reference."""
+
+    def __init__(self, generator: Optional[torch.Generator], device,
+                 lead: tuple = ()):
+        self.generator = generator
+        self.device = torch.device(device)
+        self.lead = tuple(lead)
+
+    def stacked(self, n: int) -> "Init":
+        return Init(self.generator, self.device, self.lead + (n,))
+
+    def _draw(self, shape, dtype, fill):
+        shape = self.lead + tuple(shape)
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device="meta")
+        return fill(torch.empty(shape, dtype=torch.float32)).to(self.device,
+                                                                 dtype)
+
+    def dense(self, shape, dtype=torch.float32, scale: float = None):
+        """Truncated normal in [-2, 2] times ``scale`` (default 1 /
+        sqrt(fan-in), the reference's ``dense_init``)."""
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+        return self._draw(shape, dtype, lambda t: torch.nn.init.trunc_normal_(
+            t, 0.0, 1.0, -2.0, 2.0, generator=self.generator).mul_(std))
+
+    def normal(self, shape, std: float, dtype=torch.float32):
+        return self._draw(shape, dtype, lambda t: t.normal_(
+            0.0, 1.0, generator=self.generator).mul_(std))
+
+    def zeros(self, shape, dtype=torch.float32):
+        return self._draw(shape, dtype, torch.zero_)
+
+    def ones(self, shape, dtype=torch.float32):
+        return self._draw(shape, dtype, lambda t: t.fill_(1.0))
+
+
+# ---------------------------------------------------------------------------
+# normalisation / rope
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    """In f32; the learned scale is stored as an offset from 1."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
+    # copied to the device once: a copy from pageable host memory waits
+    # for the device's queue to empty, and apply_rope runs twice a layer
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., seq, heads, head_dim); positions: (..., seq). Rotates the
+    two halves of head_dim (not interleaved pairs)."""
+    freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs  # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (flash-style chunked, plain torch: memory O(seq * chunk))
+# ---------------------------------------------------------------------------
+
+def _attn_block(q, k, v, mask, scale):
+    """q: (b,cq,hkv,g,d)  k/v: (b,ck,hkv,d) -> (max, sum, partial out),
+    scores and products in f32."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+    s = s * scale
+    if mask is not None:
+        s = torch.where(mask, s, -1e30)
+    m = torch.amax(s, dim=-1)  # (b,h,g,q)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return m, l, o
+
+
+def _merge(m1, l1, o1, m2, l2, o2):
+    m = torch.maximum(m1, m2)
+    a1 = torch.exp(m1 - m)
+    a2 = torch.exp(m2 - m)
+    l = l1 * a1 + l2 * a2
+    # o partials are (b,q,h,g,d); stats (b,h,g,q) -> move the q axis
+    s1 = torch.movedim(a1, -1, 1)[..., None]
+    s2 = torch.movedim(a2, -1, 1)[..., None]
+    return m, l, o1 * s1 + o2 * s2
+
+
+def flash_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
+                    kv_chunk: int = 1024, kv_valid_len=None,
+                    block_causal: bool = True):
+    """Chunked (flash-style) attention with GQA, O(seq*chunk) live memory.
+
+    q: (b, sq, hq, d); k,v: (b, skv, hkv, d). hq = g * hkv.
+    ``block_causal=True`` skips fully-masked KV blocks for causal attention
+    (a lower-triangular schedule: ~2x fewer attention FLOPs).
+    ``kv_valid_len``: optional scalar; masks kv positions >= it.
+    A chunk that does not divide its sequence falls back to one block.
+    """
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    q = q.reshape(b, sq, hkv, g, d)
+
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    nq = max(sq // q_chunk, 1)
+    nk = max(skv // kv_chunk, 1)
+    if sq % q_chunk:
+        nq, q_chunk = 1, sq
+    if skv % kv_chunk:
+        nk, kv_chunk = 1, skv
+
+    kb = k.reshape(b, nk, kv_chunk, hkv, d)
+    vb = v.reshape(b, nk, kv_chunk, hkv, d)
+    kv_pos = torch.arange(skv, device=q.device).reshape(nk, kv_chunk)
+
+    outs = []
+    for qi in range(nq):
+        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
+        m = torch.full((b, hkv, g, q_chunk), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, hkv, g, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        o = torch.zeros((b, q_chunk, hkv, g, d), dtype=torch.float32,
+                        device=q.device)
+        # blocks [0, qi] alone can contribute under the causal schedule
+        hi = qi + 1 if causal and block_causal and nq == nk and sq == skv \
+            else nk
+        for ki in range(hi):
+            kpos = kv_pos[ki]
+            mask = None
+            if causal:
+                mask = q_pos[:, None] >= kpos[None, :]
+            if kv_valid_len is not None:
+                vm = kpos < kv_valid_len
+                mask = vm[None, :] if mask is None else (mask & vm[None, :])
+            if mask is not None:
+                mask = mask[None, None, None]  # (1,1,1,q,k) vs (b,h,g,q,k)
+            m2, l2, o2 = _attn_block(qc, kb[:, ki], vb[:, ki], mask, scale)
+            m, l, o = _merge(m, l, o, m2, l2, o2)
+        l = torch.movedim(l, -1, 1)[..., None]  # (b,q,h,g,1)
+        outs.append((o / torch.clamp(l, min=1e-30)).to(v.dtype))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out.reshape(b, sq, hq, d)
+
+
+# ---------------------------------------------------------------------------
+# attention module (params + apply)
+# ---------------------------------------------------------------------------
+
+def attn_init(init: Init, cfg):
+    d = cfg.d_model
+    hd, hq, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    dt = dtype_of(cfg.param_dtype)
+    p = {"wq": init.dense((d, hq * hd), dt),
+         "wk": init.dense((d, hkv * hd), dt),
+         "wv": init.dense((d, hkv * hd), dt),
+         "wo": init.dense((hq * hd, d), dt)}
+    if cfg.qk_norm:
+        p["q_norm"] = init.zeros((hd,), dt)
+        p["k_norm"] = init.zeros((hd,), dt)
+    return p
+
+
+def _proj_qkv(p, x, cfg):
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.num_heads, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def attn_apply(p, x, cfg, *, positions):
+    q, k, v = _proj_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_chunk,
+                        kv_chunk=cfg.attn_chunk,
+                        block_causal=cfg.block_causal)
+    b, s, _, _ = o.shape
+    o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return o @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(init: Init, cfg, d_ff: int):
+    d = cfg.d_model
+    dt = dtype_of(cfg.param_dtype)
+    p = {}
+    if not cfg.mlp_gelu:
+        p["w_gate"] = init.dense((d, d_ff), dt)
+    p["w_up"] = init.dense((d, d_ff), dt)
+    p["w_down"] = init.dense((d_ff, d), dt)
+    return p
+
+
+def mlp_apply(p, x):
+    """SwiGLU with ``w_gate``, else a 2-matrix MLP with ``jax.nn.gelu``'s
+    default, the tanh approximation."""
+    u = x @ p["w_up"].to(x.dtype)
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"].to(x.dtype)) * u
+    else:
+        h = F.gelu(u, approximate="tanh")
+    return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+
+def embed_init(init: Init, cfg):
+    dt = dtype_of(cfg.param_dtype)
+    p = {}
+    if not cfg.external_embeddings:
+        p["embedding"] = init.dense((cfg.vocab_size, cfg.d_model), dt,
+                                    scale=1.0)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = init.dense((cfg.d_model, cfg.vocab_size), dt)
+    p["final_norm"] = init.zeros((cfg.d_model,), dt)
+    return p
+
+
+def embed_lookup(p, tokens, cfg, compute_dtype):
+    emb = p["embedding"][tokens.long()].to(compute_dtype)
+    return emb * math.sqrt(cfg.d_model) if cfg.tie_embeddings else emb
+
+
+def lm_logits(p, x, cfg):
+    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    w = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
+    return x @ w.to(x.dtype)
 
 
 def cross_entropy(logits, targets, *, z_loss: float = 1e-4):

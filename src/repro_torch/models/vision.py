@@ -1,5 +1,5 @@
-"""Port of ``src/repro/models/vision.py``: the Small tier's ResNet56 and
-the Medium tier's MobileNetV3; ViT arrives with a later slice.
+"""Port of ``src/repro/models/vision.py``: the Small tier's ResNet56, the
+Medium tier's MobileNetV3 and the Large tier's ViT-Large.
 
 Parameters are a plain nested dict/list of tensors that mirrors the JAX
 tree key for key and shape for shape, so wire bytes and the flat FedAvg
@@ -21,7 +21,9 @@ import torch.nn.functional as F
 
 from repro_torch import _tree
 from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import TransformerLM
 
 
 def conv_init(generator, k, c_in, c_out, dtype=torch.float32, groups=1):
@@ -226,6 +228,76 @@ class MobileNetV3:
         x = torch.mean(x, dim=(1, 2))
         x = hard_swish(x @ p["head"]["fc1"])
         return x @ p["head"]["fc2"] + p["head"]["b"]
+
+    def loss(self, p, batch):
+        logits = self.forward(p, batch["images"])
+        return L.cross_entropy(logits[:, None, :], batch["labels"][:, None],
+                               z_loss=0.0), {}
+
+
+# ---------------------------------------------------------------------------
+# ViT-Large (Large tier: 303,236,096 params; the paper's 307M)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    name: str = "vit-large"
+    num_layers: int = 24
+    d_model: int = 1024
+    num_heads: int = 16
+    d_ff: int = 4096
+    patch: int = 16
+    image_size: int = 224
+    num_classes: int = 203
+
+
+class ViT:
+    """Encoder-only transformer over patch embeddings (classification).
+
+    The reference's quirks are kept: RoPE on top of the learned ``pos``
+    (``ModelConfig.rope_theta`` defaults to 10,000), logits averaged over
+    positions, and ``pos`` sized for ``image_size`` whatever the images
+    are. On the silos' 16x16 images with ``patch`` 16 there is one patch,
+    and ``+ pos`` broadcasts it to all 196 positions: the Large tier's
+    live round runs at sequence length 196."""
+
+    def __init__(self, cfg: ViTConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.lm_cfg = ModelConfig(
+            name=cfg.name, family="audio", num_layers=cfg.num_layers,
+            d_model=cfg.d_model, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_heads, d_ff=cfg.d_ff,
+            vocab_size=cfg.num_classes, causal=False,
+            external_embeddings=True, dtype="float32",
+            param_dtype="float32", remat="none", attn_chunk=256,
+            mlp_gelu=True)
+        self.tf = TransformerLM(self.lm_cfg, device=self.device)
+
+    def init(self, generator: torch.Generator):
+        """Random params drawn on the host from ``generator`` (a CPU
+        ``torch.Generator``), then moved to the model's device; on the
+        ``meta`` device, shapes and dtypes only."""
+        cfg = self.cfg
+        init = L.Init(generator, self.device)
+        n_patches = (cfg.image_size // cfg.patch) ** 2
+        return {"tf": self.tf.init(generator),
+                "patch_w": init.normal((cfg.patch * cfg.patch * 3,
+                                        cfg.d_model), 0.02),
+                "patch_b": init.zeros((cfg.d_model,)),
+                "pos": init.normal((n_patches, cfg.d_model), 0.02)}
+
+    def _patchify(self, images):
+        cfg = self.cfg
+        b, h, w, c = images.shape
+        ph = h // cfg.patch
+        x = images.reshape(b, ph, cfg.patch, ph, cfg.patch, c)
+        return x.permute(0, 1, 3, 2, 4, 5).reshape(b, ph * ph, -1)
+
+    def forward(self, p, images):
+        x = self._patchify(images) @ p["patch_w"] + p["patch_b"] + p["pos"]
+        logits, _ = self.tf.forward(p["tf"], {"embeds": x})
+        return torch.mean(logits, dim=1)  # mean-pool classification
 
     def loss(self, p, batch):
         logits = self.forward(p, batch["images"])

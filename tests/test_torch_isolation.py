@@ -4,7 +4,9 @@
 Two checks: an AST walk of every source file for ``import jax`` /
 ``jaxlib`` / ``repro`` (absolute imports of ``repro_torch`` are fine),
 and an import of every port module in a fresh interpreter in which
-``jax``, ``jaxlib`` and ``repro`` cannot be imported at all.
+``jax``, ``jaxlib`` and ``repro`` cannot be imported at all. Beside
+them, the paper tiers' models dispatch as every entry point does: with
+no device named they run on the card, and raise where there is none.
 """
 import ast
 import os
@@ -13,6 +15,9 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+from repro_torch.configs.paper_tiers import TIER_ORDER, build_tier_model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -68,3 +73,13 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("tier", TIER_ORDER)
+def test_tier_model_defaults_to_cuda(tier):
+    if torch.cuda.is_available():
+        model, _ = build_tier_model(tier)
+        assert model.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_tier_model(tier)

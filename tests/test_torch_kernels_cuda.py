@@ -584,3 +584,57 @@ def test_kernels_flush_in_the_rounding_window(cuda):
         out = fr.fedavg_reduce_q8(qq.contiguous(), ss, wd, block)
         want = fr.fedavg_reduce_q8_plain(qq.contiguous(), ss, wd, block)
         assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+# Offsets past 2^31 bytes (the Large tier's stacked (5, 303,236,096) f32
+# FedAvg input holds 6.1e9 bytes): each kernel path at a shape whose last
+# element lies beyond a 32-bit index, bit for bit (dequantize at rtol 1e-6)
+BIG = {"(N, T) rows": (3, 2 ** 28 + 5, 0),
+       "tree form, one leaf": (2, 2 ** 29 + 3, 0),
+       "q8 fast path": (3, 2 ** 30 + 8, 8),
+       "q8 general path": (3, 3 * 357_913_944, 3),
+       "quantize general path": (2 ** 31 // 1020 + 1, 255, 0),
+       "dequantize general path": (2 ** 31 // 255 + 1, 255, 0)}
+
+
+@pytest.mark.parametrize("case", list(BIG), ids=list(BIG))
+def test_kernels_past_2_31_bytes(cuda, case):
+    a, b, block = BIG[case]
+    g = torch.Generator(device=cuda).manual_seed(a % 1000)
+    if case == "(N, T) rows":
+        x = torch.randn((a, b), generator=g, device=cuda)
+        w = torch.tensor([0.5, 0.25, 0.25], device=cuda)
+        got, want = fr.fedavg_reduce(x, w), fr.fedavg_reduce_plain(x, w)
+    elif case == "tree form, one leaf":
+        leaves = [[torch.randn(b, generator=g, device=cuda)]
+                  for _ in range(a)]
+        w = np.asarray([0.75, 0.25], np.float32)
+        (got,), (want,) = (fr.fedavg_reduce_leaves(leaves, w),
+                           fr.fedavg_reduce_leaves_plain(leaves, w))
+    elif case.startswith("q8"):
+        q = torch.randint(-127, 128, (a, b), generator=g, device=cuda,
+                          dtype=torch.int8)
+        s = torch.rand((a, b // block), generator=g, device=cuda)
+        w = torch.full((a,), 1.0 / a, device=cuda)
+        assert fr.q8_fast_path(q, block) == (case == "q8 fast path")
+        got = fr.fedavg_reduce_q8(q, s, w, block)
+        want = fr.fedavg_reduce_q8_plain(q, s, w, block)
+    elif case == "quantize general path":
+        x = torch.randn((a, b), generator=g, device=cuda)
+        assert not qz.fast_path(x, torch.float32)
+        got, want = qz.quantize_blocks(x), qz.quantize_blocks_plain(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return
+    else:
+        q = torch.randint(-127, 128, (a, b), generator=g, device=cuda,
+                          dtype=torch.int8)
+        s = torch.rand((a, 1), generator=g, device=cuda)
+        assert q.numel() >= 2 ** 31 and not qz.fast_path(q, torch.float32)
+        got = qz.dequantize_blocks(q, s)
+        want = qz.dequantize_blocks_plain(q, s)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+        return
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
