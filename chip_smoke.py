@@ -63,7 +63,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    pass on the card against the CPU (f32), and DistilBERT's loss and
    gradients at batch 2, sequence 512 (``flash_attention``'s 2 x 2
    blocks), the card's f32 and the CPU's f32 runs each against the CPU's
-   f64 run.
+   f64 run;
+13. vertical (split) FL at full width, through ``fl_train``'s
+   ``build_deployment``, ``_vertical_strategy`` and ``run_event_driven``:
+   (a) ResNet56 cut after unit 2 under ``examples/scenarios/
+   vertical_geo.json``'s channel, faults and split (auto, zlib, 8 MB
+   chunks, link loss 0.01, 8 batches a round, ``qsgd:256`` on the
+   activations and their gradients; 4 geo parties, 2 rounds), and (b)
+   MobileNetV3 cut after unit 2 on grpc with ``topk:0.05`` (3 parties, 1
+   round). Each run starts with every launch count at 0; every quantize,
+   dequantize and ``topk_rows`` call is held against its plain version as
+   it returns, at least one encode and one decode launch is asserted per
+   activation and per gradient that completed, the error-feedback
+   streams must be one per direction, and every bottom and the top stay
+   on the card; per-batch ms of bottom forward, top step and bottom
+   backward, the codec's host ms per message, the message shapes and wire
+   bytes, AUTO's routes, the simulated round, wall seconds and peak device
+   memory are printed. Then the kernels at the messages' shapes ((256,
+   256) quantize pair, (1, 6,144) ``topk_rows`` with k = 307), timed cold
+   and replayed from a CUDA graph beside an empty launch; split == unsplit
+   at full width on the card (ResNet56 and MobileNetV3, cut 2); and a
+   reduced vertical run on the card against the CPU.
 
 The three FedAvg kernels flush subnormals as XLA does on the CPU and sum
 the clients in order, so each is held bit for bit against its plain
@@ -122,6 +142,7 @@ from repro_torch.configs.paper_tiers import TIERS  # noqa: E402
 from repro_torch.core import TensorPayload  # noqa: E402
 from repro_torch.core.channel import make_channel  # noqa: E402
 from repro_torch.data import make_silo_datasets  # noqa: E402
+from repro_torch.fl import vertical as tv  # noqa: E402
 from repro_torch.fl.aggregator import fedavg, fedavg_quantized  # noqa: E402
 from repro_torch.kernels import fedavg_reduce as fr  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -1888,6 +1909,352 @@ def large_models_check(device) -> None:
                                  f"with the CPU's f64 run")
 
 
+# -- phase 13: vertical (split) FL at full width ----------------------------
+VERTICAL_GEO = ROOT / "examples" / "scenarios" / "vertical_geo.json"
+VERTICAL_RUNS = (
+    # (a) vertical_geo.json's channel, faults and split (auto, zlib, 8 MB
+    # chunks, link loss 0.01, cut 2, 8 batches a round, qsgd:256 on the
+    # activations and their gradients, 4 geo parties) on ResNet56: the
+    # reference has no adapter for the file's Big tier (DistilBERT)
+    ("vertical_geo.json on ResNet56", ["--scenario", str(VERTICAL_GEO),
+                                       "--tier", "small", "--rounds", "2"]),
+    # (b) MobileNetV3 with top-k on the activations and their gradients
+    ("vertical MobileNetV3 topk grpc", [
+        "--mode", "vertical", "--backend", "grpc", "--environment",
+        "geo_distributed", "--clients", "3", "--rounds", "1", "--tier",
+        "medium", "--cut-layer", "2", "--activation-codec",
+        f"topk:{TOPK_FRAC}"]),
+)
+# the messages of the two runs: batch 16 of the silos' 16x16 images
+RESNET_ACTS = (16, 16, 16, 16)  # ResNet56 after unit 2 (stage 0 keeps 16x16)
+ACT_ROWS = -(-math.prod(RESNET_ACTS) // (QSGD_BLOCK * qz.ROW_TILE)) \
+    * qz.ROW_TILE
+MOBILENET_ACTS = (16, 4, 4, 24)  # MobileNetV3 after unit 2
+VERTICAL_REF_ARGV = ["--mode", "vertical", "--backend", "torch_rpc",
+                     "--environment", "lan", "--clients", "2", "--rounds",
+                     "1", "--batches-per-round", "2", "--activation-codec",
+                     "none"]
+SPLIT_TOL = 1e-5  # split == unsplit (tests/test_vertical.py)
+
+
+@contextlib.contextmanager
+def vertical_probe(ms: dict, seen: dict):
+    """Within: every bottom forward, top step and bottom backward of the
+    live vertical path is timed (synchronised wall ms, into ``ms``), the
+    batches whose backward ran are counted (``seen["completed"]``), and
+    the last activation and activation gradient are kept."""
+    kept = {"bottom_forward": tv.SplitPlan.bottom_forward,
+            "_on_activation": tv.VerticalStrategy._on_activation,
+            "_on_grad": tv.VerticalStrategy._on_grad,
+            "_send_grad": tv.VerticalStrategy._send_grad}
+    seen["completed"] = 0
+
+    def timed(what, fn, *args, **kw):
+        synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        synchronize()
+        ms.setdefault(what, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def bottom_forward(plan, bottom, batch):
+        acts = timed("bottom forward", kept["bottom_forward"], plan, bottom,
+                     batch)
+        seen["acts"] = acts.detach()
+        return acts
+
+    def on_activation(strat, now, **kw):
+        return timed("top step", kept["_on_activation"], strat, now, **kw)
+
+    def on_grad(strat, now, *, client, msg):
+        key = (client.client_id, msg.round, int(msg.metadata["batch"]))
+        pending = key in strat._vjp
+        timed("bottom backward", kept["_on_grad"], strat, now, client=client,
+              msg=msg)
+        seen["completed"] += pending and key not in strat._vjp
+
+    def send_grad(strat, now, **kw):
+        seen["grad"] = kw["payload"].tree["g"]
+        return kept["_send_grad"](strat, now, **kw)
+
+    tv.SplitPlan.bottom_forward = bottom_forward
+    tv.VerticalStrategy._on_activation = on_activation
+    tv.VerticalStrategy._on_grad = on_grad
+    tv.VerticalStrategy._send_grad = send_grad
+    try:
+        yield
+    finally:
+        tv.SplitPlan.bottom_forward = kept["bottom_forward"]
+        for name in ("_on_activation", "_on_grad", "_send_grad"):
+            setattr(tv.VerticalStrategy, name, kept[name])
+
+
+def routed(backend):
+    """The backend that carries a vertical message: AUTO routes every one
+    of them (far below its 10 MB knee) to its gRPC backend."""
+    return getattr(backend, "grpc", backend)
+
+
+def ms_summary(xs) -> str:
+    xs = sorted(xs)
+    return (f"median {statistics.median(xs):.3f}, min {xs[0]:.3f}, max "
+            f"{xs[-1]:.3f} over {len(xs)}")
+
+
+def vertical_checks(name, sched, calls, got, seen, device) -> None:
+    """Launch counts against the run, the kernels' shapes, the
+    per-direction error-feedback streams, and the parties on the card."""
+    strat, rep_clients = sched.strategy, sched.clients
+    done = seen["completed"]
+    topk = "topk" in name
+    for k in KERNELS:
+        expect(name, f"{k} launches vs recorded calls", got[k],
+               len(calls.get(k, [])))
+    # one encode per message sent and one decode per message received:
+    # at least one of each per activation and per gradient that completed
+    if topk:
+        k = topk_k(math.prod(MOBILENET_ACTS))
+        shapes = {tuple(a[0].shape) + (int(a[1]),)
+                  for a, _ in calls.get("topk_rows", [])}
+        if shapes != {(1, math.prod(MOBILENET_ACTS), k)}:
+            raise AssertionError(f"{name}: topk_rows ran at (B, T, k) "
+                                 f"{shapes}")
+        expect(name, "topk_rows launches", got["topk_rows"], 2 * done,
+               at_least=True)
+        quiet = ("quantize_blocks", "dequantize_blocks")
+    else:
+        shapes = {tuple(a[0].shape) for a, _ in
+                  calls.get("quantize_blocks", [])}
+        if shapes != {(ACT_ROWS, QSGD_BLOCK)}:
+            raise AssertionError(f"{name}: quantize_blocks ran at {shapes}")
+        expect(name, "quantize_blocks launches", got["quantize_blocks"],
+               2 * done, at_least=True)
+        expect(name, "dequantize_blocks launches", got["dequantize_blocks"],
+               2 * done, at_least=True)
+        quiet = ("topk_rows",)
+    # a vertical round closes on virtual records: no FedAvg
+    for k in quiet + ("fedavg_reduce", "fedavg_accumulate",
+                      "fedavg_reduce_q8"):
+        expect(name, f"{k} launches", got[k], 0)
+    # activations ride up on each party's channel (one residual stream,
+    # keyed by the server), gradients down on the server's (one per party)
+    for c in rep_clients:
+        state = routed(c.backend).channel.compress_stage._state
+        if set(state) != {"server"}:
+            raise AssertionError(f"{name}: {c.client_id}'s error-feedback "
+                                 f"streams are {sorted(state)}")
+    down = routed(sched.backend).channel.compress_stage._state
+    if set(down) != {c.client_id for c in rep_clients}:
+        raise AssertionError(f"{name}: the server's error-feedback streams "
+                             f"are {sorted(down)}")
+    leaves = _tree.leaves((strat.live.top, strat.live.bottoms))
+    if not all(l.device.type == torch.device(device).type
+               and bool(torch.isfinite(l).all()) for l in leaves):
+        raise AssertionError(f"{name}: a party's parameters left the card "
+                             f"or are not finite")
+    if strat._vjp:
+        raise AssertionError(f"{name}: {len(strat._vjp)} bottom graphs "
+                             f"were never released")
+    losses = [e.loss for e in sched.agg_log]
+    if not losses or not all(l is not None and math.isfinite(l)
+                             for l in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+
+
+def vertical_path(card: str, device, errs: dict) -> dict:
+    """Phase 13: runs (a) and (b), each with every launch count at 0 just
+    before it and read just after; every quantize, dequantize and
+    ``topk_rows`` call held against its plain version as it returns.
+    Returns each kernel's launches over both runs."""
+    total = {k: 0 for k in KERNELS}
+    for name, argv in VERTICAL_RUNS:
+        calls, ms, seen = {}, {}, {}
+        at_once = {"quantize_blocks": 0.0, "dequantize_blocks": 0.0,
+                   "topk_rows": 0.0}
+        fresh_run()
+        t0 = time.perf_counter()
+        with recording(calls, at_once), vertical_probe(ms, seen):
+            rep, sched = event_run(argv, device, reduced=False)
+        synchronize()
+        wall = time.perf_counter() - t0
+        got = launches()
+        mem = memory_note()
+        for k in KERNELS:
+            total[k] += got[k]
+        for k, e in at_once.items():
+            errs[k] = max(errs[k], e)
+        vertical_checks(name, sched, calls, got, seen, device)
+        strat = sched.strategy
+        n_batches = len(sched.clients) * strat.batches_per_round \
+            * rep.n_aggregations
+        if "topk" in name:  # no faults: every batch completes
+            expect(name, "batches completed", seen["completed"], n_batches)
+            expect(name, "aggregations", rep.n_aggregations, 1)
+        else:
+            expect(name, "aggregations", rep.n_aggregations, 2)
+        acts, grad = seen["acts"], seen["grad"]
+        want = MOBILENET_ACTS if "topk" in name else RESNET_ACTS
+        if tuple(acts.shape) != want or tuple(grad.shape) != want:
+            raise AssertionError(f"{name}: activations {tuple(acts.shape)}, "
+                                 f"gradients {tuple(grad.shape)}")
+        log(f"{name} ({type(strat.live.plan.model).__name__}, cut "
+            f"{strat.cut_layer}, {len(sched.clients)} parties, "
+            f"{strat.batches_per_round} batches a round): wall {wall:.3f} s; "
+            f"sim_time={rep.sim_time:.4f}s aggregations="
+            f"{rep.n_aggregations} (simulated round "
+            f"{rep.sim_time / rep.n_aggregations:.4f} s) batches completed "
+            f"{seen['completed']} of {n_batches}, discarded "
+            f"{rep.n_discarded}; losses "
+            f"{[round(e.loss, 4) for e in sched.agg_log]}; launches {got}; "
+            f"every call held against its plain version as it returned "
+            f"(max abs err {at_once}); {mem}; {card}")
+        log(f"   per batch, synchronised wall ms: " + "; ".join(
+            f"{what} {ms_summary(xs)}" for what, xs in ms.items()))
+        fabric = sched.backend.fabric
+        decisions = {}
+        for be in [sched.backend] + [c.backend for c in sched.clients]:
+            for mt, nb, route in getattr(be, "decisions", []):
+                n, top = decisions.get(f"{mt}:{route}", (0, 0))
+                decisions[f"{mt}:{route}"] = (n + 1, max(top, nb))
+        off = [key for key in decisions if key.split(":")[0] in
+               ("activation", "grad") and not key.endswith(":grpc")]
+        if off:
+            raise AssertionError(f"{name}: AUTO routed vertical messages "
+                                 f"off gRPC: {decisions}")
+        log(f"   wire: {dict(fabric.stats)}; AUTO's routes (count, "
+            f"largest wire estimate in bytes): {decisions or 'not AUTO'}")
+        # the codec's host work per message, on the run's own channels
+        client = sched.clients[0]
+        up = routed(client.backend).channel
+        down = routed(sched.backend).channel
+        enc_a = up.encode(TensorPayload({"acts": acts}), "server")
+        enc_g = down.encode(TensorPayload({"g": grad}), client.client_id)
+        host = {"activation encode": lambda: up.encode(
+                    TensorPayload({"acts": acts}), "server"),
+                "activation decode": lambda: down.decode(enc_a.wire),
+                "gradient encode": lambda: down.encode(
+                    TensorPayload({"g": grad}), client.client_id),
+                "gradient decode": lambda: up.decode(enc_g.wire)}
+        log(f"   messages: activation {tuple(acts.shape)} "
+            f"{acts.numel() * 4} bytes -> wire {enc_a.wire.nbytes} bytes, "
+            f"gradient {tuple(grad.shape)} -> wire {enc_g.wire.nbytes} "
+            f"bytes ({up.signature()}); codec host ms, synchronised: "
+            + ", ".join(f"{what} {time_host(fn):.3f}"
+                        for what, fn in host.items()) + f" ({card})")
+        del rep, sched, calls, seen, acts, grad, enc_a, enc_g, host
+        release()
+    return total
+
+
+def activation_kernels(card: str) -> None:
+    """The vertical path's kernels at its message shapes, held against
+    their plain versions and timed cold and replayed from a CUDA graph,
+    beside an empty launch under both."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.relu(torch.randn(RESNET_ACTS, generator=g, device="cuda")) \
+        .reshape(ACT_ROWS, QSGD_BLOCK)
+    q, s = qz.quantize_blocks(x)
+    hold_quantize(x, (q, s))
+    hold_dequantize(q, s, torch.float32, qz.dequantize_blocks(q, s))
+    n = ACT_ROWS * QSGD_BLOCK
+    qbytes = 4 * n + n + 4 * ACT_ROWS
+    t = math.prod(MOBILENET_ACTS)
+    k = topk_k(t)
+    row = torch.randn(MOBILENET_ACTS, generator=g, device="cuda") \
+        .reshape(1, t)
+    hold_topk(row, k, tk.topk_rows(row, k))
+    cases = {
+        f"quantize_blocks ({ACT_ROWS}, {QSGD_BLOCK})": (
+            lambda: qz.quantize_blocks(x), lambda: qz.quantize_blocks_plain(x),
+            None, qbytes, QUANT_OPS * n),
+        f"dequantize_blocks ({ACT_ROWS}, {QSGD_BLOCK})": (
+            lambda: qz.dequantize_blocks(q, s),
+            lambda: qz.dequantize_blocks_plain(q, s),
+            lambda: torch.mul(q, s), qbytes, n),
+        f"topk_rows (1, {t}) k={k}": (
+            lambda: tk.topk_rows(row, k), lambda: tk.topk_rows_plain(row, k),
+            lambda: torch.topk(row.abs(), k), 4 * t + 8 * k, 0)}
+    for what, (kern, plain, lib, nbytes, ops_) in cases.items():
+        bound_ms, bound_by = bound(nbytes, ops_, card)
+        library = f"{time_cold(lib):.6f}" if lib else "None"
+        log(f"{what}, the vertical path's message: kernel_ms="
+            f"{time_cold(kern):.6f} graph-replayed {time_graph(kern):.6f} ms; "
+            f"plain_ms={time_cold(plain):.6f}; library_ms={library} "
+            f"bound_ms={bound_ms:.6f} ({nbytes} bytes, {bound_by}; {card})")
+    log(f"floor: an empty kernel launch: {time_cold(empty_launch):.6f} ms "
+        f"cold, {time_graph(empty_launch):.6f} ms graph-replayed ({card})")
+
+
+def split_grads(fn, *trees):
+    """``fn(*trees)`` and its gradient, one tree per input tree."""
+    flat = [_tree.flatten(t) for t in trees]
+    xs = [[l.detach().requires_grad_(True) for l in ls] for ls, _ in flat]
+    out = fn(*[_tree.unflatten(d, x) for x, (_, d) in zip(xs, flat)])
+    grads = iter(torch.autograd.grad(out, [l for x in xs for l in x]))
+    return float(out.detach()), [
+        _tree.unflatten(d, [next(grads) for _ in x])
+        for x, (_, d) in zip(xs, flat)]
+
+
+def vertical_reference_check(device) -> None:
+    """Two checks, under cuDNN's deterministic algorithms. At full width
+    on the card, one batch's split loss and merged gradients against
+    ``model.loss`` for ResNet56 and MobileNetV3 (cut 2), at SPLIT_TOL of
+    the larger of 1 and each leaf's largest entry; then a reduced vertical
+    run (2 parties, LAN, torch_rpc, no codec, 1 round of 2 batches) on the
+    card against the same run on the CPU: the same event trace, and every
+    bottom, the top and the losses within LEAF_RTOL of each leaf's
+    largest entry, as phase 8 holds its deterministic run."""
+    silo = make_silo_datasets(1, kind="image", examples_per_silo=64,
+                              num_classes=8, image_size=16, seed=13)[0]
+    batch = {k: torch.as_tensor(v).to(device)
+             for k, v in next(silo.batches(16, seed=1)).items()}
+    for model in (ResNet(ResNetConfig(), device=device),
+                  MobileNetV3(MobileNetConfig(), device=device)):
+        params = model.init(torch.Generator().manual_seed(13))
+        plan = tv.SplitPlan(model, 2)
+        with cudnn_deterministic(True):
+            loss, (grads,) = split_grads(
+                lambda p: model.loss(p, batch)[0], params)
+            split_loss, (g_b, g_t) = split_grads(
+                lambda b, t: plan.loss(b, t, batch)[0],
+                *plan.split_params(params))
+        merged = plan.merge_params(g_b, g_t)
+        worst = max(float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())) for a, b in zip(_tree.leaves(merged),
+                                            _tree.leaves(grads)))
+        log(f"{type(model).__name__} full width, split at unit 2 vs "
+            f"unsplit on the card: loss {split_loss:.7f} vs {loss:.7f}; "
+            f"merged gradients, per leaf, max {worst:.3e} of max(1, the "
+            f"leaf's largest entry) (bar {SPLIT_TOL})")
+        if abs(split_loss - loss) > SPLIT_TOL or worst > SPLIT_TOL:
+            raise AssertionError(f"{type(model).__name__}: split != unsplit "
+                                 f"on the card")
+    del params, grads, merged, g_b, g_t
+
+    cpu, cpu_sched = event_run(VERTICAL_REF_ARGV, "cpu", reduced=True)
+    with cudnn_deterministic(True):
+        card, card_sched = event_run(VERTICAL_REF_ARGV, device, reduced=True)
+    if card_sched.loop.trace != cpu_sched.loop.trace:
+        raise AssertionError("the vertical run's event trace differs between "
+                             "the card and the CPU")
+    got, want = card_sched.strategy.live, cpu_sched.strategy.live
+    errs = leaf_errors((got.top, got.bottoms), (want.top, want.bottoms))
+    to_bar = [e / max(LEAF_RTOL * m, 1e-30) for e, m in errs]
+    i = max(range(len(errs)), key=to_bar.__getitem__)
+    card_l = [e.loss for e in card_sched.agg_log]
+    cpu_l = [e.loss for e in cpu_sched.agg_log]
+    log(f"reduced vertical run, cudnn.deterministic=True, card vs CPU: "
+        f"losses {card_l} vs {cpu_l}; {len(errs)} leaves of the top and "
+        f"the bottoms, leaf {i} nearest its bar {LEAF_RTOL} * largest "
+        f"entry: err {errs[i][0]:.3e}, largest entry {errs[i][1]:.3e}")
+    if to_bar[i] > 1.0 or len(card_l) != len(cpu_l) or not all(
+            math.isclose(a, b, rel_tol=LEAF_RTOL)
+            for a, b in zip(card_l, cpu_l)):
+        raise AssertionError("the reduced vertical run on the card disagrees "
+                             "with the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1947,13 +2314,18 @@ def main() -> int:
     phase_done("11 (the Large tier's live path)")
     large_models_check(device)
     phase_done("12 (ViT-Large and DistilBERT, card against CPU)")
+    vertical_launches = vertical_path(card, device, errs)
+    activation_kernels(card)
+    vertical_reference_check(device)
+    phase_done("13 (vertical FL at full width)")
 
     # launches: over the main paths each kernel is on, each path run with
     # the counts at 0 (fedavg_reduce: the sync rounds, the event runs and
-    # the Large tier's two runs; the quantize pair: the event runs and the
-    # Large fedbuff run; fedavg_reduce_q8: the fedavg_quantized phase)
+    # the Large tier's two runs; the quantize pair: the event runs, the
+    # Large fedbuff run and vertical run (a); topk_rows: the event runs
+    # and vertical run (b); fedavg_reduce_q8: the fedavg_quantized phase)
     path_launches = {k: event_launches[k] + large_launches[k]
-                     for k in KERNELS}
+                     + vertical_launches[k] for k in KERNELS}
     path_launches["fedavg_reduce"] += sync_launches
     path_launches["fedavg_reduce_q8"] += q8_launches
     sources = {"fedavg_reduce": ("fedavg_reduce.cu", "fedavg_reduce.py:42"),

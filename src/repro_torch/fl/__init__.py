@@ -1,7 +1,7 @@
 """Port of ``src/repro/fl/``: the sync FL round (server, clients,
 FedAvg), the event-driven runtime (scheduler and the fedbuff / semisync /
-hier strategies) and the fault plans. Vertical and multi-tenant runs
-arrive with later slices."""
+hier / vertical strategies), the multi-tenant scheduler and the fault
+plans."""
 from repro_torch.fl.aggregator import (fedavg, fedavg_quantized,
                                        staleness_weight)
 from repro_torch.fl.async_strategies import (AggregationStrategy,
@@ -14,10 +14,14 @@ from repro_torch.fl.fault import (AvailabilityTrace, FaultPlan,
 from repro_torch.fl.scheduler import (AsyncRunReport, EventLoop,
                                       FLScheduler, UpdateRecord)
 from repro_torch.fl.server import FLServer, RoundReport, quorum_cutoff
+from repro_torch.fl.vertical import (SplitPlan, VerticalLive,
+                                     VerticalStrategy, bottom_fraction,
+                                     sim_activation_nbytes)
 
 __all__ = ["FLServer", "FLClient", "RoundReport", "fedavg", "fedavg_quantized",
            "staleness_weight", "quorum_cutoff",
            "FLScheduler", "EventLoop", "AsyncRunReport", "UpdateRecord",
            "AggregationStrategy", "FedBuffStrategy", "SemiSyncStrategy",
            "HierarchicalStrategy", "make_strategy", "AvailabilityTrace",
-           "FaultPlan", "make_availability"]
+           "FaultPlan", "make_availability", "SplitPlan", "VerticalLive",
+           "VerticalStrategy", "bottom_fraction", "sim_activation_nbytes"]

@@ -1,6 +1,6 @@
 """Port of ``src/repro/fl/async_strategies.py`` (copied; imports
-re-pointed, the vertical mode left out, and the relay backends built on
-the server backend's device).
+re-pointed, and the relay backends built on the server backend's
+device).
 
 Aggregation strategies for the event-driven FL scheduler.
 
@@ -739,9 +739,11 @@ def make_strategy(cfg, num_clients: Optional[int] = None,
         return HierarchicalStrategy(
             staleness_exponent=cfg.staleness_exponent, **overrides)
     if mode == "vertical":
-        raise NotImplementedError(
-            "scheduler mode 'vertical': vertical FL is not yet ported to "
-            "repro_torch (ROADMAP.md queue A, item 13)")
+        from repro_torch.fl.vertical import VerticalStrategy
+        overrides.setdefault("cut_layer", getattr(cfg, "cut_layer", 1))
+        overrides.setdefault("batches_per_round",
+                             getattr(cfg, "batches_per_round", 8))
+        return VerticalStrategy(**overrides)
     raise KeyError(
         f"unknown scheduler mode '{mode}': event-driven modes are "
         f"'fedbuff' | 'semisync' | 'hier' | 'vertical' (sync rounds use "

@@ -1,6 +1,6 @@
-"""Port of ``src/repro/launch/fl_train.py``: the sync round and the
-event-driven runtime (``--mode fedbuff|semisync|hier``); the vertical,
-sweep and multi-tenant runners arrive with later slices.
+"""Port of ``src/repro/launch/fl_train.py``: the sync round, the
+event-driven runtime (``--mode fedbuff|semisync|hier|vertical``), and the
+sweep (``--sweep``) and multi-tenant (``--multi``) runners.
 
 Cross-silo FL driver — the paper's end-to-end system, live.
 
@@ -16,7 +16,10 @@ card unless ``--device`` names another device:
 
 ``--mode fedbuff|semisync|hier`` switches to the event-driven runtime
 (fl/scheduler.py): clients run independently and ``--rounds`` counts
-server aggregations instead of lockstep rounds.
+server aggregations instead of lockstep rounds. ``--mode vertical``
+splits the model between the silos (feature parties) and the server
+(label party) and exchanges real activations and activation gradients
+per batch (fl/vertical.py).
 
 The experiment is one declarative ``Scenario`` (repro_torch/scenario/):
 ``--scenario FILE`` loads one, and every other flag is an override on
@@ -33,7 +36,7 @@ from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import FLConfig
 from repro_torch.configs.paper_tiers import TIERS, build_tier_model
-from repro_torch.core import TensorPayload
+from repro_torch.core import TensorPayload, VirtualPayload
 from repro_torch.core.backends import BACKEND_NAMES
 from repro_torch.data import make_silo_datasets
 from repro_torch.fl import FLClient, FLServer, make_strategy
@@ -43,8 +46,6 @@ from repro_torch.scenario import (TOPOLOGY_PRESETS, Scenario, ScenarioError,
                                   build_runtime, with_overrides)
 
 LEARNING_RATE = 0.05
-_VERTICAL = ("--mode vertical: vertical FL is not yet ported to repro_torch "
-             "(ROADMAP.md queue A, item 14)")
 _BIG_LIVE = ("tier 'big' (DistilBERT) cannot train in a live round: the "
              "reference's live path cannot train it either, since "
              "DistilBert.loss takes a classification head that the training "
@@ -93,8 +94,6 @@ def build_deployment(fl_cfg: FLConfig, *, tier: str = "small",
     else:
         sc = fl_cfg.to_scenario(tier=tier, local_steps=local_steps,
                                 store_fail_rate=fail_rate)
-    if fl_cfg.mode == "vertical":
-        raise NotImplementedError(_VERTICAL)
     rt = build_runtime(sc)
     env, store = rt.env, rt.store
 
@@ -124,9 +123,15 @@ def build_deployment(fl_cfg: FLConfig, *, tier: str = "small",
     # server's broadcast stays uncompressed. The wire codec and chunked
     # pipelining are lossless and ride every backend (Runtime applies
     # them). Every backend decodes onto the deployment's device.
-    client_compression = (fl_cfg.compression
-                          if fl_cfg.mode in ("fedbuff", "semisync")
-                          else "none")
+    if fl_cfg.mode == "vertical":
+        # vertical traffic is compressed on BOTH directions: activations
+        # up on the clients' channels, gradients down on the server's
+        client_compression = server_compression = fl_cfg.activation_codec
+    else:
+        client_compression = (fl_cfg.compression
+                              if fl_cfg.mode in ("fedbuff", "semisync")
+                              else "none")
+        server_compression = "none"
     clients = []
     for i, host in enumerate(env.clients):
         cb = rt.make_backend(host.host_id, compression=client_compression,
@@ -135,26 +140,73 @@ def build_deployment(fl_cfg: FLConfig, *, tier: str = "small",
                                 train_fn=train_fn, batch_size=16,
                                 sim_train_s=sim_train,
                                 seed=fl_cfg.seed + i, device=device))
-    server_backend = rt.make_backend("server", compression="none",
+    server_backend = rt.make_backend("server",
+                                     compression=server_compression,
                                      device=device)
     server = FLServer(server_backend, clients,
                       quorum_fraction=fl_cfg.quorum_fraction,
                       round_deadline_s=fl_cfg.round_deadline_s,
                       local_steps=local_steps)
-    server.model = model
+    server.model = model  # the deployed zoo model (vertical mode splits it)
     return server, params, env, store
+
+
+def _vertical_strategy(fl_cfg: FLConfig, server: FLServer, params,
+                       scenario: Scenario):
+    """Live VerticalStrategy over the deployment's model: the split
+    parties run real SGD and real activation/gradient tensors ride the
+    backends' wire stacks (codec + EF per direction, chunking, faults).
+    Batches are made on the device that holds ``params``."""
+    from repro_torch.fl.vertical import (SIM_BATCH_SIZE, SplitPlan,
+                                         VerticalLive, VerticalStrategy,
+                                         bottom_fraction,
+                                         sim_activation_nbytes)
+    plan = SplitPlan(server.model, fl_cfg.cut_layer)
+    bottom, top = plan.split_params(params)
+    # each feature party starts from the same bottom (they hold disjoint
+    # example sets, not disjoint features, in this single-dataset driver)
+    bottoms = {c.client_id: bottom for c in server.clients}
+    by_id = {c.client_id: c for c in server.clients}
+    device = _tree.leaves(params)[0].device
+
+    def batch_fn(cid, round_, batch):
+        c = by_id[cid]
+        it = c.dataset.batches(c.batch_size,
+                               seed=c.seed + 131 * round_ + batch)
+        return {k: torch.tensor(v, device=device)
+                for k, v in next(it).items()}
+
+    tier = TIERS[scenario.fleet.tier]
+    return VerticalStrategy(
+        cut_layer=fl_cfg.cut_layer,
+        batches_per_round=fl_cfg.batches_per_round,
+        activation_nbytes=sim_activation_nbytes(
+            tier.payload_bytes, SIM_BATCH_SIZE, fl_cfg.cut_layer),
+        train_s=tier.train_s(fl_cfg.environment),
+        bottom_frac=bottom_fraction(fl_cfg.cut_layer, plan.n_units),
+        live=VerticalLive(plan=plan, bottoms=bottoms, top=top,
+                          batch_fn=batch_fn))
 
 
 def run_event_driven(fl_cfg: FLConfig, server: FLServer, params, store,
                      scenario: Scenario):
-    """Async / semi-sync / hierarchical execution over the same
-    deployment. Returns (AsyncRunReport, FLScheduler)."""
-    strategy = make_strategy(fl_cfg, fl_cfg.num_clients)
+    """Async / semi-sync / hierarchical / vertical execution over the
+    same deployment. Returns (AsyncRunReport, FLScheduler)."""
+    if fl_cfg.mode == "vertical":
+        strategy = _vertical_strategy(fl_cfg, server, params, scenario)
+        # vertical rounds update the split parties in place — the
+        # scheduler's "global payload" is activation-sized bookkeeping,
+        # never a model broadcast
+        global_payload = VirtualPayload(strategy.activation_nbytes,
+                                        tag="vertical-global")
+    else:
+        strategy = make_strategy(fl_cfg, fl_cfg.num_clients)
+        global_payload = TensorPayload(params)
     availability = make_availability(
         fl_cfg.availability_trace,
         [c.client_id for c in server.clients],
         horizon_s=scenario.faults.trace_horizon_s, seed=fl_cfg.seed)
-    report, sched = server.run_async(TensorPayload(params), strategy,
+    report, sched = server.run_async(global_payload, strategy,
                                      availability=availability,
                                      cohort_k=fl_cfg.cohort_k,
                                      cohort_seed=fl_cfg.seed,
@@ -198,14 +250,12 @@ def _parser() -> argparse.ArgumentParser:
                          "examples/scenarios/sweep_decision_guide.json): "
                          "run every cell through the generic scenario "
                          "runner instead of one training run (equivalent "
-                         "to `python -m repro.sweep FILE`; not yet "
-                         "ported to repro_torch)")
+                         "to `python -m repro_torch.sweep FILE`)")
     ap.add_argument("--multi", default=None,
                     help="multi-tenant scenario JSON (see examples/"
                          "scenarios/multitenant_pair.json): co-schedule "
                          "every job on one shared fabric + clock under "
-                         "the spec's admission policy (not yet ported "
-                         "to repro_torch)")
+                         "the spec's admission policy")
     ap.add_argument("--blackout-trace", default=None,
                     help="JSONL link-outage replay (one {src,dst,t0,t1,"
                          "symmetric} object per line) appended to the "
@@ -215,8 +265,7 @@ def _parser() -> argparse.ArgumentParser:
                          "every cell")
     ap.add_argument("--sweep-out-dir", default=None,
                     help="with --sweep: run-store/report root (default: "
-                         "the repo's benchmarks/out when importable, "
-                         "else ./benchmarks/out)")
+                         "./benchmarks_torch/out)")
     ap.add_argument("--backend", default=None, choices=BACKEND_NAMES)
     ap.add_argument("--environment", default=None,
                     choices=list(TOPOLOGY_PRESETS),
@@ -347,12 +396,37 @@ def resolve_scenario(args, ap: argparse.ArgumentParser) -> Scenario:
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.sweep or args.multi:
-        ap.error("--sweep / --multi: the sweep and multi-tenant runners "
-                 "are not yet ported to repro_torch")
+    if args.sweep:
+        # a sweep file is a whole grid of scenarios, not one training
+        # run: expand + execute through the engine's resumable run store
+        from repro_torch.sweep.__main__ import OUT_DIR, run_sweep_file
+        try:
+            run_sweep_file(args.sweep, out_dir=args.sweep_out_dir or OUT_DIR,
+                           fresh=args.sweep_fresh)
+        except (ScenarioError, OSError, ValueError) as e:
+            ap.error(str(e))
+        return 0
+    if args.multi:
+        # N co-scheduled tenant jobs on one fabric: the generic
+        # multi-tenant runner, not one training run
+        from repro_torch.scenario import MultiScenario
+        from repro_torch.sweep.runners import run_multi
+        try:
+            res = run_multi(MultiScenario.load(args.multi))
+        except (ScenarioError, OSError, ValueError) as e:
+            ap.error(str(e))
+        print(f"[multi] '{res['name']}': policy={res['policy']} "
+              f"shared_links={res['shared_links']} "
+              f"jobs={len(res['jobs'])} "
+              f"total_bytes={res['bytes_on_wire']:.3e}")
+        for name, j in res["jobs"].items():
+            print(f"    {name}: {j['n_rounds']} aggregations in "
+                  f"{j['sim_time_s']:.2f}s sim "
+                  f"({j['round_s']:.2f}s/round, "
+                  f"{j['n_client_updates']} client updates, "
+                  f"{j['bytes_on_wire']:.3e} B on wire)")
+        return 0
     sc = resolve_scenario(args, ap)
-    if sc.strategy.mode == "vertical":
-        ap.error(_VERTICAL)
 
     if sc.channel.backend == "grpc+s3" and sc.topology.kind == "lan":
         print("[fl] note: paper omits grpc+s3 on LAN; switching to auto")

@@ -638,3 +638,44 @@ def test_kernels_past_2_31_bytes(cuda, case):
         return
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# The vertical path's messages (ROADMAP item 14), batch 16 of 16x16
+# images: a ResNet56 activation after unit 1 or 2 is (16, 16, 16, 16) f32
+# (after a ReLU) and its gradient the same shape, each quantised by
+# ``qsgd:256`` as (256, 256); a MobileNetV3 activation after unit 2 is
+# (16, 4, 4, 24), one row of 6,144 through ``topk_rows`` with k = 307
+# (``topk:0.05``).
+@pytest.mark.parametrize("message", ["activation", "gradient"])
+def test_quantize_pair_at_activation_shapes(cuda, message):
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x = torch.randn((16, 16, 16, 16), generator=g, device=cuda)
+    x = torch.relu(x) if message == "activation" else x * 1e-4
+    x = x.reshape(256, 256)
+    assert qz.fast_path(x, torch.float32)
+    before = (qz.QUANTIZE_LAUNCHES, qz.DEQUANTIZE_LAUNCHES)
+    q, s = qz.quantize_blocks(x)
+    out = qz.dequantize_blocks(q, s)
+    assert (qz.QUANTIZE_LAUNCHES, qz.DEQUANTIZE_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    pq, ps = qz.quantize_blocks_plain(x)
+    want = qz.dequantize_blocks_plain(q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_at_activation_shape(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(19)
+    acts = torch.randn((16, 4, 4, 24), generator=g, device=cuda)
+    x = acts.to(dtype).reshape(1, -1)
+    k = max(1, int(x.shape[1] * 0.05))
+    assert (x.shape[1], k) == (6_144, 307)
+    before = tk.LAUNCHES
+    idx, vals = tk.topk_rows(x, k)
+    assert tk.LAUNCHES == before + 1
+    pi, pv = tk.topk_rows_plain(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, pi)
+    assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))
