@@ -83,7 +83,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    256) quantize pair, (1, 6,144) ``topk_rows`` with k = 307), timed cold
    and replayed from a CUDA graph beside an empty launch; split == unsplit
    at full width on the card (ResNet56 and MobileNetV3, cut 2); and a
-   reduced vertical run on the card against the CPU.
+   reduced vertical run on the card against the CPU;
+14. the LM zoo's serving path, through ``launch/serve.generate``: (a)
+   ``qwen3-8b`` (dense), ``zamba2-1.2b`` (hybrid), ``xlstm-1.3b`` (ssm)
+   and ``granite-moe-1b-a400m`` (MoE) at full width in bf16 with each
+   config's own remat, parameters drawn on the card from a CUDA
+   generator, element counts equal to ``registry.param_count``; 8
+   requests, prompt 32, gen 16 (the reference CLI's defaults); finite
+   logits, tokens in range, the decode logits at the prompt's positions
+   within 5e-2 of the largest |logit| of ``forward`` on the prompt
+   (xLSTM's within 2.5e-1, and again in f32 from the same values made
+   f32 within 1e-4);
+   prefill and decode seconds, ms per decode step, tokens/s, a step's
+   bytes bound and peak device memory printed; the six kernels' launch
+   counts over the phase printed and asserted 0 (the path reaches none);
+   (b) every causal arch's smoke config in f32, 8 decode steps, and
+   ``hubert-xlarge``'s forward, card against CPU from the same parameters
+   at 1e-4 of the largest logit (llama4-maverick's interleaved MoE with a
+   shared expert and llama-3.2-vision's cross-attention among them).
 
 The three FedAvg kernels flush subnormals as XLA does on the CPU and sum
 the clients in order, so each is held bit for bit against its plain
@@ -118,6 +135,7 @@ CUDA card is present.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import gc
@@ -137,6 +155,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import _tree  # noqa: E402
 from repro_torch.compression.stages import QsgdCodec, TopkCodec  # noqa: E402
+from repro_torch.configs import ARCH_ORDER, get_config, smoke_config  # noqa: E402
 from repro_torch.configs.base import FLConfig  # noqa: E402
 from repro_torch.configs.paper_tiers import TIERS  # noqa: E402
 from repro_torch.core import TensorPayload  # noqa: E402
@@ -148,7 +167,10 @@ from repro_torch.kernels import fedavg_reduce as fr  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import topk as tk  # noqa: E402
-from repro_torch.launch import fl_train  # noqa: E402
+from repro_torch.launch import fl_train, serve  # noqa: E402
+from repro_torch.models import (active_param_count, build_model,  # noqa: E402
+                                param_count)
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.bert import BertConfig, DistilBert  # noqa: E402
 from repro_torch.models.vision import (MobileNetConfig, MobileNetV3,  # noqa: E402
                                        ResNet, ResNetConfig, ViT, ViTConfig)
@@ -2255,6 +2277,216 @@ def vertical_reference_check(device) -> None:
                              "with the CPU")
 
 
+# -- phase 14: the LM zoo's serving path at full width ---------------------
+# serve's default (dense), examples/serve_lm.py's default (hybrid), the
+# ssm and the MoE family; each through the port's serve loop at the
+# reference CLI's defaults
+SERVE_ARCHS = ("qwen3-8b", "zamba2-1.2b", "xlstm-1.3b",
+               "granite-moe-1b-a400m")
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 32, 16
+SERVE_BAR = 5e-2  # decode against forward, bf16, of the largest |logit|
+# xLSTM's bf16 decode and forward part further at full width, in the
+# reference too: on the CPU at 16 of its 48 layers the reference reads
+# 1.87e-1 and the port 7.9e-2 (tests/xlstm_bf16_drift.py). An arch with a
+# looser bf16 bar has its decode path held again in f32, from the same
+# values made f32, at F32_BAR
+SERVE_BARS = {"xlstm-1.3b": 2.5e-1}
+F32_BAR = 1e-4
+SMOKE_STEPS = 8
+
+
+def decode_step_bytes(model, params, cache, valid: int) -> int:
+    """The least bytes one decode step moves: every parameter read once,
+    except an untied embedding table, of which only the requests' rows
+    are read; a recurrent state read and written whole; a KV cache's
+    ``valid`` slots read and one slot written; the logits written."""
+    cfg = model.cfg
+    b = SERVE_REQUESTS
+    nbytes = sum(l.numel() * l.element_size() for l in _tree.leaves(params))
+    table = params["embed"].get("embedding")
+    if table is not None and not cfg.tie_embeddings:
+        nbytes -= table.numel() * table.element_size()
+        nbytes += b * cfg.d_model * table.element_size()
+    kv = 0
+    for path, leaf in _tree_items(cache):
+        size = leaf.numel() * leaf.element_size()
+        if path[-1] in ("k", "v"):  # (..., b, smax, hkv, hd)
+            kv += size // leaf.shape[-3] * (valid + 1)
+        elif path[-1] in ("xk", "xv"):  # the VLM's static image kv: read
+            kv += size
+        else:
+            kv += 2 * size
+    logit_bytes = b * cfg.vocab_size * L.dtype_of(cfg.dtype).itemsize
+    return nbytes + kv + logit_bytes
+
+
+def _tree_items(tree, path=()):
+    """(key path, leaf) over a nested dict."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _tree_items(tree[k], path + (k,))
+        else:
+            yield path + (k,), tree[k]
+
+
+def decode_against_forward(run, model, params, prompts):
+    """-> (max abs err, largest |logit|, all finite) of the decode logits
+    at the prompt's positions against ``forward`` on the prompt."""
+    with torch.inference_mode():
+        full, _ = model.forward(params, {"tokens": prompts})
+    got, want = run.prompt_logits.float(), full.float()
+    return (float((got - want).abs().max()), float(want.abs().max()),
+            bool(torch.isfinite(got).all() and torch.isfinite(want).all()))
+
+
+def serve_arch(arch: str, card: str, device) -> None:
+    """One arch at full width in bf16 with its own remat: parameters drawn
+    on the card, 8 requests served through ``serve.generate``, the decode
+    logits at the prompt's positions held against ``forward`` on the
+    prompt (for the archs in SERVE_BARS, again in f32 from the same values
+    made f32)."""
+    cfg = get_config(arch)
+    fresh_peak()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    g = torch.Generator(device=device).manual_seed(14)
+    params = model.init(g)
+    n = sum(l.numel() for l in _tree.leaves(params))
+    expect(arch, "parameters", n, param_count(cfg))
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT),
+                            generator=g, device=device)
+    synchronize()
+    init_s = time.perf_counter() - t0
+    run = serve.generate(model, params, prompts, SERVE_GEN)
+    err, top, finite = decode_against_forward(run, model, params, prompts)
+    in_range = bool(((run.tokens >= 0) & (run.tokens < cfg.vocab_size)).all())
+    step_ms = statistics.median(run.step_s) * 1e3
+    cache = model.init_cache(SERVE_REQUESTS, SERVE_PROMPT + SERVE_GEN)
+    nbytes = decode_step_bytes(model, params, cache,
+                               SERVE_PROMPT + SERVE_GEN // 2)
+    bound_ms = nbytes / hbm_rate(card) * 1e3
+    log(f"serve {arch} ({cfg.family}) full width bf16, remat={cfg.remat}: "
+        f"{n:,} parameters, {active_param_count(cfg):,} active, drawn on "
+        f"the card in {init_s:.3f} s; {SERVE_REQUESTS} requests, prompt "
+        f"{SERVE_PROMPT}, gen {SERVE_GEN}: prefill {run.prefill_s:.4f} s, "
+        f"decode {run.decode_s:.4f} s, {step_ms:.3f} ms per decode step "
+        f"(median of {SERVE_GEN}; min {min(run.step_s) * 1e3:.3f}, max "
+        f"{max(run.step_s) * 1e3:.3f}), "
+        f"{SERVE_REQUESTS * SERVE_GEN / run.decode_s:.1f} tokens/s; a step's "
+        f"bytes bound {nbytes:,} B / {hbm_rate(card) / 1e12:.2f} TB/s = "
+        f"{bound_ms:.3f} ms ({bound_ms / step_ms:.3f} of the step); "
+        f"{memory_note()}")
+    with torch.inference_mode():
+        rows = device_breakdown(lambda: model.decode_step(
+            params, cache, {"tokens": prompts[:, :1], "pos": SERVE_PROMPT}))
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    top3 = ", ".join(f"{short_name(k)[:40]} {us:.1f} µs x {n:.0f}"
+                     for k, us, n in rows[:3])
+    log(f"serve {arch}: one decode step under torch.profiler: "
+        f"{sum(r[2] for r in rows):.0f} kernel launches, {busy_ms:.3f} ms of "
+        f"device time, {busy_ms / step_ms:.3f} of the median step (the rest "
+        f"the host's launching); largest {top3}")
+    bar = SERVE_BARS.get(arch, SERVE_BAR)
+    log(f"serve {arch}: decode logits at the prompt's positions vs forward "
+        f"on the prompt, bf16, max abs err {err:.4e}, {err / top:.4e} of the "
+        f"largest |logit| {top:.4f} (bar {bar}); sample "
+        f"{run.tokens[0, :8].tolist()}")
+    if not finite or not in_range or err > bar * top:
+        raise AssertionError(f"serve {arch}: finite {finite}, tokens in "
+                             f"range {in_range}, decode vs forward {err:.4e} "
+                             f"of {top:.4f}")
+    del cache
+    if arch not in SERVE_BARS:
+        return
+    bf16_logits = run.prompt_logits.float()
+    del run
+    cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device=device)
+    params = _tree.map(lambda a: a.float(), params)
+    fresh_peak()
+    run = serve.generate(model, params, prompts, 1)
+    err, top, finite = decode_against_forward(run, model, params, prompts)
+    drift = float((bf16_logits - run.prompt_logits.float()).abs().max())
+    log(f"serve {arch}: the same values in f32, decode logits at the "
+        f"prompt's positions vs forward on the prompt, max abs err "
+        f"{err:.4e}, {err / top:.4e} of the largest |logit| {top:.4f} (bar "
+        f"{F32_BAR}); the bf16 decode logits vs these, {drift / top:.4e} of "
+        f"it; {memory_note()}")
+    if not finite or err > F32_BAR * top:
+        raise AssertionError(f"serve {arch} f32: decode vs forward "
+                             f"{err:.4e} of {top:.4f}")
+
+
+def fresh_peak() -> None:
+    """Memory returned to the card and its peak reset."""
+    release()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def serving_path(card: str, device) -> None:
+    """Phase 14 (a): the four archs at full width; the six kernels' launch
+    counts set to 0 before and read after, over the phase, which reaches
+    none of them."""
+    zero_launches()
+    for arch in SERVE_ARCHS:
+        serve_arch(arch, card, device)
+    release()
+    counts = launches()
+    log(f"phase 14 launches of the six kernels: {counts}")
+    if any(counts.values()):
+        raise AssertionError("the LM serving path launched a FedAvg, "
+                             "quantize or top-k kernel")
+
+
+def serving_reference_check(device) -> None:
+    """Phase 14 (b): every causal arch's smoke config in f32, 8 decode
+    steps, card against CPU from the same parameters (TF32 off), each
+    step's logits at 1e-4 of the CPU's largest; hubert-xlarge's forward
+    the same way. llama4-maverick (interleaved MoE with a shared expert)
+    and llama-3.2-vision (cross-attention) run the branches the full-width
+    runs lack."""
+    bar = 1e-4
+    for arch in ARCH_ORDER:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
+                                  param_dtype="float32")
+        cpu = build_model(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(15))
+        card_model = build_model(cfg, device=device)
+        card_params = _tree.map(lambda a: a.to(device), params)
+        g = torch.Generator().manual_seed(16)
+        worst = 0.0
+        with torch.inference_mode():
+            if not cfg.causal:
+                embeds = torch.randn((2, 16, cfg.d_model), generator=g)
+                want, _ = cpu.forward(params, {"embeds": embeds})
+                got, _ = card_model.forward(card_params,
+                                            {"embeds": embeds.to(device)})
+                pairs = [(got, want)]
+            else:
+                tokens = torch.randint(0, cfg.vocab_size, (2, SMOKE_STEPS),
+                                       generator=g)
+                caches = [cpu.init_cache(2, SMOKE_STEPS),
+                          card_model.init_cache(2, SMOKE_STEPS)]
+                pairs = []
+                for pos in range(SMOKE_STEPS):
+                    t = tokens[:, pos:pos + 1]
+                    want, caches[0] = cpu.decode_step(
+                        params, caches[0], {"tokens": t, "pos": pos})
+                    got, caches[1] = card_model.decode_step(
+                        card_params, caches[1],
+                        {"tokens": t.to(device), "pos": pos})
+                    pairs.append((got, want))
+            for got, want in pairs:
+                err = float((got.cpu() - want).abs().max())
+                worst = max(worst, err / float(want.abs().max()))
+        what = "forward" if not cfg.causal else f"{SMOKE_STEPS} decode steps"
+        log(f"smoke {arch} f32, {what}, card vs CPU: logits max abs err "
+            f"{worst:.3e} of the largest (bar {bar})")
+        if worst > bar:
+            raise AssertionError(f"smoke {arch}: the card disagrees with the "
+                                 f"CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2318,6 +2550,9 @@ def main() -> int:
     activation_kernels(card)
     vertical_reference_check(device)
     phase_done("13 (vertical FL at full width)")
+    serving_path(card, device)
+    serving_reference_check(device)
+    phase_done("14 (the LM zoo's serving path)")
 
     # launches: over the main paths each kernel is on, each path run with
     # the counts at 0 (fedavg_reduce: the sync rounds, the event runs and

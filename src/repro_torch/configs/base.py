@@ -1,8 +1,7 @@
 """Port of ``src/repro/configs/base.py``: ``ModelConfig`` (the LM
-core's architecture description, without ``param_count``, which goes
-through the model registry: ROADMAP item 15), ``FLConfig`` and its one
-conversion to a ``Scenario``. The shape, mesh and training configs arrive
-with the launch layer.
+families' architecture description), ``ShapeConfig`` (one input shape),
+``FLConfig`` and its one conversion to a ``Scenario``. The mesh and
+training configs arrive with the launch layer.
 """
 from __future__ import annotations
 
@@ -94,6 +93,32 @@ class ModelConfig:
         k = self.moe_interleave
         # MoE on layers (k-1, 2k-1, ...) — matches Llama-4 style interleaving.
         return [(i % k) == (k - 1) for i in range(self.num_layers)]
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for payload tiers + MODEL_FLOPS)."""
+        from repro_torch.models import registry  # lazy to avoid cycles
+
+        return registry.param_count(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One benchmark cell's input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.global_batch * self.seq_len
 
 
 @dataclasses.dataclass(frozen=True)

@@ -61,6 +61,7 @@ from repro_torch.core.message import FLMessage, TensorPayload, VirtualPayload
 from repro_torch.fl.async_strategies import AggregationStrategy
 from repro_torch.fl.scheduler import FLScheduler, UpdateRecord
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import unstacked
 from repro_torch.models.vision import conv, hard_swish, norm_apply
 
 
@@ -182,23 +183,6 @@ class _MobileNetAdapter:
                                z_loss=0.0), {}
 
 
-def _segments(cfg):
-    """The segment plan the reference's ``TransformerLM`` makes for
-    ``cfg`` (``_plan_segments``). The port's ``TransformerLM`` has no
-    segment list: its constructor builds only the plain plan and refuses
-    MoE and cross-attention."""
-    n = cfg.num_layers
-    if cfg.family == "vlm" and cfg.cross_attn_every:
-        k = cfg.cross_attn_every
-        return [(tuple(["cross"] + ["self"] * (k - 1)), n // k)]
-    if cfg.num_experts and cfg.moe_interleave > 1:
-        k = cfg.moe_interleave
-        return [(tuple(["self"] * (k - 1) + ["moe"]), n // k)]
-    if cfg.num_experts:
-        return [(("moe",), n)]
-    return [(("self",), n)]
-
-
 class _TransformerAdapter:
     """Cut between transformer layers of a plain dense stack: the token
     embedding table rides with the bottom (the feature party holds the
@@ -206,7 +190,7 @@ class _TransformerAdapter:
 
     def __init__(self, model):
         cfg = model.cfg
-        segments = _segments(cfg)
+        segments = model.segments
         if segments != [(("self",), cfg.num_layers)]:
             raise ValueError(
                 f"SplitPlan: only plain dense stacks are splittable; "
@@ -242,11 +226,9 @@ class _TransformerAdapter:
         return {"embed": embed, "seg0": {"b0_self": seg}}
 
     def _run_layers(self, layers, x, positions):
-        leaves, treedef = _tree.flatten(layers)
-        # one unbind per stacked leaf, as TransformerLM.forward does
-        for layer in zip(*(l.unbind(0) for l in leaves)):
-            x = self.model._block_apply(_tree.unflatten(treedef, list(layer)),
-                                        x, positions=positions)
+        for layer in unstacked(layers):
+            x, _ = self.model._block_apply("self", layer, x,
+                                           positions=positions)
         return x
 
     def bottom_forward(self, bottom, batch, cut: int):

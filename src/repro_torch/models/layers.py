@@ -1,13 +1,15 @@
-"""Port of ``src/repro/models/layers.py``: the dense transformer core's
-building blocks (parameter init, RMS norm, RoPE, the blockwise
-``flash_attention``, attention, the MLP, embeddings) and the loss. MoE,
-cross-attention, prefill and decode arrive with ROADMAP item 15.
+"""Port of ``src/repro/models/layers.py``: the LM zoo's building blocks
+(parameter init, RMS norm, RoPE, the blockwise ``flash_attention``,
+attention with optional LoRA, its prefill and decode forms against a
+preallocated cache, cross-attention, the MLP, the GShard-style MoE,
+embeddings) and the loss.
 
 Parameters are nested dicts of tensors with the reference's keys, shapes
 and dtypes; the reference's logical axes (for its sharding rules) have no
 counterpart here. ``flash_attention`` is plain jnp in the reference, not
 a Pallas kernel, so here it is plain torch with the same chunking, mask
-value and merge.
+value and merge. Decode writes its cache in place (``attn_decode``),
+where the reference returns an updated copy.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -33,9 +37,11 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 class Init:
-    """Draws a model's parameters from a CPU ``torch.Generator`` and moves
-    each to ``device``; on the ``meta`` device it makes shapes and dtypes
-    only and draws nothing (the reference's ``abstract_init``).
+    """Draws a model's parameters from a ``torch.Generator`` on the
+    generator's own device (the host for a CPU generator, the card for a
+    CUDA one) and moves each to ``device``; on the ``meta`` device it
+    makes shapes and dtypes only and draws nothing (the reference's
+    ``abstract_init``).
 
     ``stacked(n)`` gives an ``Init`` whose every leaf has ``n`` prepended
     to its shape (the reference's ``stack_init``: one leaf per parameter,
@@ -56,8 +62,9 @@ class Init:
         shape = self.lead + tuple(shape)
         if self.device.type == "meta":
             return torch.empty(shape, dtype=dtype, device="meta")
-        return fill(torch.empty(shape, dtype=torch.float32)).to(self.device,
-                                                                 dtype)
+        at = self.generator.device if self.generator is not None else "cpu"
+        return fill(torch.empty(shape, dtype=torch.float32,
+                                device=at)).to(self.device, dtype)
 
     def dense(self, shape, dtype=torch.float32, scale: float = None):
         """Truncated normal in [-2, 2] times ``scale`` (default 1 /
@@ -76,6 +83,12 @@ class Init:
 
     def ones(self, shape, dtype=torch.float32):
         return self._draw(shape, dtype, lambda t: t.fill_(1.0))
+
+    def const(self, values, dtype=torch.float32):
+        """A fixed 1-D ``values`` (host numpy, f32), the same in every
+        stacked layer, cast to ``dtype`` as the reference casts it."""
+        v = torch.from_numpy(np.asarray(values, dtype=np.float32))
+        return self._draw(v.shape, dtype, lambda t: t.copy_(v))
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +218,33 @@ def flash_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
     return out.reshape(b, sq, hq, d)
 
 
+def decode_attention(q, k_cache, v_cache, cache_len):
+    """Single-token attention against a preallocated cache.
+
+    q: (b, 1, hq, d); caches: (b, smax, hkv, d); cache_len: int (number
+    of valid positions, including the token just written). Scores and
+    products in f32, as the reference's ``preferred_element_type``.
+    """
+    b, _, hq, d = q.shape
+    _, smax, hkv, _ = k_cache.shape
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qh = q.reshape(b, hkv, g, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", qh.float(), k_cache.float()) * scale
+    mask = torch.arange(smax, device=q.device)[None, None, None, :] \
+        < cache_len
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(b, 1, hq, d).to(v_cache.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention module (params + apply)
 # ---------------------------------------------------------------------------
 
-def attn_init(init: Init, cfg):
+def attn_init(init: Init, cfg, lora_rank: int = 0):
     d = cfg.d_model
     hd, hq, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     dt = dtype_of(cfg.param_dtype)
@@ -220,35 +255,103 @@ def attn_init(init: Init, cfg):
     if cfg.qk_norm:
         p["q_norm"] = init.zeros((hd,), dt)
         p["k_norm"] = init.zeros((hd,), dt)
+    if lora_rank:
+        for nm in ("wq", "wk", "wv"):
+            out = hq * hd if nm == "wq" else hkv * hd
+            p[f"{nm}_lora_a"] = init.dense((d, lora_rank), dt)
+            p[f"{nm}_lora_b"] = init.zeros((lora_rank, out), dt)
     return p
 
 
-def _proj_qkv(p, x, cfg):
+def _proj_qkv(p, x, cfg, lora_scope=None):
+    """q, k, v; with ``lora_scope`` (a function of a LoRA leaf, e.g. one
+    application's slice) each projection adds x @ a @ b."""
+    def mm(name):
+        y = x @ p[name].to(x.dtype)
+        if lora_scope is not None and f"{name}_lora_a" in p:
+            a = lora_scope(p[f"{name}_lora_a"]).to(x.dtype)
+            bb = lora_scope(p[f"{name}_lora_b"]).to(x.dtype)
+            y = y + (x @ a) @ bb
+        return y
+
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, cfg.num_kv_heads, hd)
+    q = mm("wq").reshape(b, s, cfg.num_heads, hd)
+    k = mm("wk").reshape(b, s, cfg.num_kv_heads, hd)
+    v = mm("wv").reshape(b, s, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
-def attn_apply(p, x, cfg, *, positions):
-    q, k, v = _proj_qkv(p, x, cfg)
+def attn_apply(p, x, cfg, *, positions, causal=None, block_causal=True,
+               lora_scope=None):
+    causal = cfg.causal if causal is None else causal
+    q, k, v = _proj_qkv(p, x, cfg, lora_scope)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_chunk,
-                        kv_chunk=cfg.attn_chunk,
-                        block_causal=cfg.block_causal)
+    o = flash_attention(q, k, v, causal=causal, q_chunk=cfg.attn_chunk,
+                        kv_chunk=cfg.attn_chunk, block_causal=block_causal)
     b, s, _, _ = o.shape
     o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
     return o @ p["wo"].to(x.dtype)
 
 
+def attn_prefill(p, x, cfg, *, positions, smax, lora_scope=None):
+    """Forward + return kv to seed a decode cache padded to smax."""
+    q, k, v = _proj_qkv(p, x, cfg, lora_scope)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_chunk,
+                        kv_chunk=cfg.attn_chunk)
+    b, s, _, _ = o.shape
+    pad = (0, 0, 0, 0, 0, smax - s)  # the seq axis, from the last axis back
+    k_cache = F.pad(k, pad)
+    v_cache = F.pad(v, pad)
+    o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return o @ p["wo"].to(x.dtype), (k_cache, v_cache)
+
+
+def attn_decode(p, x, cache, cfg, *, pos, lora_scope=None):
+    """x: (b,1,d); cache: dict(k,v) of (b,smax,hkv,hd); pos: int index.
+
+    Writes this token's k and v into ``cache`` at ``pos`` in place and
+    returns (out, cache). The reference's ``dynamic_update_slice`` clamps
+    a write past smax to the last slot; here it raises ``IndexError``."""
+    pos = int(pos)
+    q, k, v = _proj_qkv(p, x, cfg, lora_scope)
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    o = decode_attention(q, cache["k"], cache["v"], pos + 1)
+    b = x.shape[0]
+    o = o.reshape(b, 1, cfg.num_heads * cfg.head_dim)
+    return o @ p["wo"].to(x.dtype), cache
+
+
+def cross_attn_apply(p, x, kv_embeds, cfg):
+    """Cross attention onto (b, n_img, d) context (no rope)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.num_heads, hd)
+    k = (kv_embeds @ p["wk"].to(x.dtype)).reshape(b, -1, cfg.num_kv_heads,
+                                                  hd)
+    v = (kv_embeds @ p["wv"].to(x.dtype)).reshape(b, -1, cfg.num_kv_heads,
+                                                  hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    o = flash_attention(q, k, v, causal=False, q_chunk=cfg.attn_chunk,
+                        kv_chunk=cfg.attn_chunk)
+    o = o.reshape(b, s, cfg.num_heads * hd)
+    return o @ p["wo"].to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
-# MLP
+# MLP / MoE
 # ---------------------------------------------------------------------------
 
 def mlp_init(init: Init, cfg, d_ff: int):
@@ -271,6 +374,85 @@ def mlp_apply(p, x):
     else:
         h = F.gelu(u, approximate="tanh")
     return h @ p["w_down"].to(x.dtype)
+
+
+def moe_init(init: Init, cfg):
+    E, ff, d = cfg.num_experts, cfg.d_ff, cfg.d_model
+    dt = dtype_of(cfg.param_dtype)
+    p = {"router": init.dense((d, E), dt, scale=0.02),
+         "w_gate": init.dense((E, d, ff), dt),
+         "w_up": init.dense((E, d, ff), dt),
+         "w_down": init.dense((E, ff, d), dt)}
+    if cfg.num_shared_experts:
+        p["shared"] = mlp_init(init, cfg, ff * cfg.num_shared_experts)
+    return p
+
+
+def moe_apply(p, x, cfg, *, group_size: int = 2048,
+              capacity_factor: float = 1.25):
+    """GShard-style grouped top-k dispatch through one-hot einsums.
+
+    Tokens are split into groups; each group dispatches into per-expert
+    capacity slots. Over-capacity tokens are dropped (their residual
+    passes through): which ones follows a cumsum over the flattened
+    (token, choice) order. Top-k breaks ties toward the lower expert, as
+    ``jax.lax.top_k`` does (a stable descending sort). Every expert runs
+    over its capacity slots, as in the reference, so the sums run in its
+    order. -> (y, the Switch-style load-balancing aux loss).
+    """
+    b, s, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    tokens = x.reshape(-1, d)
+    T = tokens.shape[0]
+    g = min(group_size, T)
+    if T % g:
+        g = T  # single group fallback
+    n_groups = T // g
+    cap = max(int(g * k * capacity_factor / E), 1)
+
+    xt = tokens.reshape(n_groups, g, d)
+    logits = xt @ p["router"].to(x.dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+
+    # top-k gating
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals, gate_idx = gate_vals[..., :k], gate_idx[..., :k]  # (n,g,k)
+    gate_vals = gate_vals / torch.clamp(
+        torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9)
+
+    # position of each (token, choice) within its expert queue
+    experts = torch.arange(E, device=x.device)
+    onehot = (gate_idx[..., None] == experts).float()  # (n,g,k,E)
+    flat = onehot.reshape(n_groups, g * k, E)
+    pos_in_e = (torch.cumsum(flat, dim=1) - flat).reshape(n_groups, g, k, E)
+    pos = torch.sum(pos_in_e * onehot, dim=-1)  # (n,g,k)
+    keep = pos < cap
+    gate_vals = gate_vals * keep
+
+    # dispatch/combine one-hots: (n, g, k, E, cap) reduced over k
+    slots = torch.arange(cap, device=x.device)
+    cap_oh = (pos[..., None] == slots).float() * keep[..., None]
+    dispatch = torch.einsum("ngke,ngkc->ngec", onehot, cap_oh)
+    combine = torch.einsum("ngke,ngkc,ngk->ngec", onehot, cap_oh, gate_vals)
+
+    xe = torch.einsum("ngec,ngd->necd", dispatch.to(x.dtype), xt)
+    xe = xe.permute(1, 0, 2, 3).reshape(E, n_groups * cap, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(x.dtype)))
+    h = h * torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(x.dtype))
+    ye = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(x.dtype))
+    ye = ye.reshape(E, n_groups, cap, d).permute(1, 0, 2, 3)  # (n,E,cap,d)
+    y = torch.einsum("ngec,necd->ngd", combine.to(x.dtype), ye)
+    y = y.reshape(b, s, d)
+
+    # load-balancing auxiliary loss (Switch-style)
+    me = torch.mean(flat, dim=1) * E  # fraction routed per expert * E
+    pe = torch.mean(probs, dim=1) * E
+    aux = torch.mean(torch.sum(me * pe, dim=-1)) / E
+
+    if cfg.num_shared_experts and "shared" in p:
+        y = y + mlp_apply(p["shared"], x)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -309,3 +491,39 @@ def cross_entropy(logits, targets, *, z_loss: float = 1e-4):
     if z_loss:
         loss = loss + z_loss * torch.mean(torch.square(lse))
     return loss
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation
+# ---------------------------------------------------------------------------
+
+# the matmuls with no batch dimension: a weight times activations
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, mode: str):
+    """The reference's remat policies for a layer body. ``"full"`` saves
+    the body's inputs alone and recomputes the rest in the backward pass
+    (``jax.checkpoint``); ``"dots"`` also saves the outputs of the
+    matmuls with no batch dimension (``checkpoint_dots_with_no_batch_dims``).
+    Memory changes, values do not; without grad, ``fn`` runs as is."""
+    if mode == "none":
+        return fn
+
+    def context():
+        return create_selective_checkpoint_contexts(_save_dots)
+
+    kw = {"context_fn": context} if mode == "dots" else {}
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+
+    return run

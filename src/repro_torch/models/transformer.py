@@ -1,13 +1,17 @@
-"""Port of ``src/repro/models/transformer.py``: the dense ``TransformerLM``
-(decoder-only or encoder-only, GQA), one segment of ``self`` blocks.
+"""Port of ``src/repro/models/transformer.py``: ``TransformerLM``, one
+substrate for the dense / moe / audio / vlm families.
+
+Layer stacks are organised into *segments*: a segment is a fixed sequence
+of block kinds repeated N times. Block kinds: ``self`` (attn+mlp),
+``moe`` (attn+moe-ffn), ``cross`` (gated cross-attn + mlp,
+llama-3.2-vision style).
 
 Layers keep the reference's stacked layout: each parameter of a segment
-is one leaf with the layers on its leading axis (``seg0.b0_self.*``), so
+is one leaf with the repeats on its leading axis (``seg0.b0_self.*``), so
 the wire, the codecs and FedAvg see the reference's leaves in its order.
 The reference's ``jax.lax.scan`` over the stacked leaves is a Python loop
-here over the per-layer slices. MoE and cross-attention segments, the
-``dots``/``full`` rematerialisation policies and the decode path wait
-for ROADMAP item 15; there is no sharding.
+here over the per-repeat slices. ``decode_step`` writes its cache in
+place and returns it. There is no sharding.
 """
 from __future__ import annotations
 
@@ -18,55 +22,120 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
-_LATER = "ROADMAP item 15 (the rest of the LM stack)"
+
+def unstacked(tree):
+    """The per-layer slices of a tree whose leaves stack the layers on
+    their leading axis, as views. One ``unbind`` per stacked leaf: its
+    backward stacks the layers' gradients once, where indexing would add
+    a zero-filled stacked gradient per layer."""
+    leaves, treedef = _tree.flatten(tree)
+    return [_tree.unflatten(treedef, list(layer))
+            for layer in zip(*(l.unbind(0) for l in leaves))]
 
 
 class TransformerLM:
     """Decoder-only (or encoder-only) transformer with GQA."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.num_experts or cfg.cross_attn_every:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE and cross-attention layers are not ported "
-                f"to repro_torch yet ({_LATER})")
-        if cfg.remat != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: remat='{cfg.remat}' is not ported to "
-                f"repro_torch yet ({_LATER}); only 'none' is")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.segments = self._plan_segments()
+
+    # ------------------------------------------------------------------
+    def _plan_segments(self):
+        cfg = self.cfg
+        Ln = cfg.num_layers
+        if cfg.family == "vlm" and cfg.cross_attn_every:
+            k = cfg.cross_attn_every
+            assert Ln % k == 0
+            kinds = tuple(["cross"] + ["self"] * (k - 1))
+            return [(kinds, Ln // k)]
+        if cfg.num_experts and cfg.moe_interleave > 1:
+            k = cfg.moe_interleave
+            assert Ln % k == 0
+            kinds = tuple(["self"] * (k - 1) + ["moe"])
+            return [(kinds, Ln // k)]
+        if cfg.num_experts:
+            return [(("moe",), Ln)]
+        return [(("self",), Ln)]
 
     # ------------------------------------------------------------------
     # params
     # ------------------------------------------------------------------
-    def init(self, generator: torch.Generator):
-        """Random params drawn on the host from ``generator`` (a CPU
-        ``torch.Generator``), then moved to the model's device; on the
-        ``meta`` device, shapes and dtypes only. The reference's ``init``
-        also returns the logical axes; the port has none."""
+    def _block_init(self, init: L.Init, kind: str):
         cfg = self.cfg
-        init = L.Init(generator, self.device)
-        embed = L.embed_init(init, cfg)
-        layers = init.stacked(cfg.num_layers)
         dt = L.dtype_of(cfg.param_dtype)
-        block = {"ln1": layers.zeros((cfg.d_model,), dt),
-                 "ln2": layers.zeros((cfg.d_model,), dt),
-                 "attn": L.attn_init(layers, cfg),
-                 "mlp": L.mlp_init(layers, cfg, cfg.d_ff_dense or cfg.d_ff)}
-        return {"embed": embed, "seg0": {"b0_self": block}}
+        p = {"ln1": init.zeros((cfg.d_model,), dt),
+             "ln2": init.zeros((cfg.d_model,), dt)}
+        if kind == "cross":
+            p["xattn"] = L.attn_init(init, cfg)
+            p["xgate"] = init.zeros((), dt)
+            p["mlp"] = L.mlp_init(init, cfg, cfg.d_ff_dense or cfg.d_ff)
+        else:
+            p["attn"] = L.attn_init(init, cfg)
+            if kind == "moe":
+                p["moe"] = L.moe_init(init, cfg)
+            else:
+                p["mlp"] = L.mlp_init(init, cfg, cfg.d_ff_dense or cfg.d_ff)
+        return p
+
+    def init(self, generator: torch.Generator):
+        """Random params drawn from ``generator`` (on its own device), then
+        moved to the model's device; on the ``meta`` device, shapes and
+        dtypes only. The reference's ``init`` also returns the logical
+        axes; the port has none."""
+        init = L.Init(generator, self.device)
+        params = {"embed": L.embed_init(init, self.cfg)}
+        for si, (kinds, repeat) in enumerate(self.segments):
+            layers = init.stacked(repeat)
+            params[f"seg{si}"] = {f"b{bi}_{kind}": self._block_init(layers,
+                                                                    kind)
+                                  for bi, kind in enumerate(kinds)}
+        return params
 
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def _block_apply(self, p, x, *, positions):
+    def _block_apply(self, kind, p, x, *, positions, image_embeds=None):
+        """-> (x, aux loss); aux is 0 outside a ``moe`` block."""
         cfg = self.cfg
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + L.attn_apply(p["attn"], h, cfg, positions=positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if kind == "cross":
+            a = L.cross_attn_apply(p["xattn"], h, image_embeds, cfg)
+            x = x + torch.tanh(p["xgate"].to(a.dtype)) * a
+        else:
+            a = L.attn_apply(p["attn"], h, cfg, positions=positions,
+                             block_causal=cfg.block_causal)
+            x = x + a
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + L.mlp_apply(p["mlp"], h)
+        if kind == "moe":
+            y, aux = L.moe_apply(p["moe"], h, cfg,
+                                 group_size=cfg.moe_group_size,
+                                 capacity_factor=cfg.capacity_factor)
+        else:
+            y = L.mlp_apply(p["mlp"], h)
+        return x + y, aux
+
+    def _stack_apply(self, params, x, *, positions, image_embeds=None):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for si, (kinds, _) in enumerate(self.segments):
+
+            def body(layer_p, x, aux, _kinds=kinds):
+                for bi, kind in enumerate(_kinds):
+                    x, a = self._block_apply(
+                        kind, layer_p[f"b{bi}_{kind}"], x,
+                        positions=positions, image_embeds=image_embeds)
+                    aux = aux + a
+                return x, aux
+
+            body = L.remat(body, self.cfg.remat)
+            for layer_p in unstacked(params[f"seg{si}"]):
+                x, aux = body(layer_p, x, aux)
+        return x, aux
 
     def forward(self, params, batch):
-        """-> (logits (b, s, vocab), aux loss); aux is 0 without MoE."""
+        """-> (logits (b, s, vocab), aux loss)."""
         cfg = self.cfg
         dtype = L.dtype_of(cfg.dtype)
         if cfg.external_embeddings:
@@ -75,18 +144,98 @@ class TransformerLM:
             x = L.embed_lookup(params["embed"], batch["tokens"], cfg, dtype)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        leaves, treedef = _tree.flatten(params["seg0"]["b0_self"])
-        # one unbind per stacked leaf: its backward stacks the layers'
-        # gradients once, where indexing would add a zero-filled stacked
-        # gradient per layer
-        for layer in zip(*(l.unbind(0) for l in leaves)):
-            x = self._block_apply(_tree.unflatten(treedef, list(layer)), x,
-                                  positions=positions)
-        logits = L.lm_logits(params["embed"], x, cfg)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        img = batch.get("image_embeds")
+        if img is not None:
+            img = img.to(x.dtype)
+        x, aux = self._stack_apply(params, x, positions=positions,
+                                   image_embeds=img)
+        return L.lm_logits(params["embed"], x, cfg), aux
 
     def loss(self, params, batch):
         logits, aux = self.forward(params, batch)
         ce = L.cross_entropy(logits, batch["targets"])
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "aux": aux}
+
+    # ------------------------------------------------------------------
+    # decode path
+    # ------------------------------------------------------------------
+    def cache_spec(self, batch_size: int, max_seq: int):
+        """The decode cache's shapes and dtypes, as ``meta`` tensors (the
+        reference's ShapeDtypeStructs; it also returns axes)."""
+        cfg = self.cfg
+        dt = L.dtype_of(cfg.dtype)
+
+        def spec(*shape):
+            return torch.empty(shape, dtype=dt, device="meta")
+
+        cache = {}
+        for si, (kinds, repeat) in enumerate(self.segments):
+            seg = {}
+            for bi, kind in enumerate(kinds):
+                if kind == "cross":
+                    xshape = (repeat, batch_size, cfg.num_image_tokens,
+                              cfg.num_kv_heads, cfg.head_dim)
+                    seg[f"b{bi}_{kind}"] = {"xk": spec(*xshape),
+                                            "xv": spec(*xshape)}
+                else:
+                    shape = (repeat, batch_size, max_seq, cfg.num_kv_heads,
+                             cfg.head_dim)
+                    seg[f"b{bi}_{kind}"] = {"k": spec(*shape),
+                                            "v": spec(*shape)}
+            cache[f"seg{si}"] = seg
+        return cache
+
+    def init_cache(self, batch_size: int, max_seq: int):
+        return _tree.map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                               device=self.device),
+                         self.cache_spec(batch_size, max_seq))
+
+    def decode_step(self, params, cache, batch):
+        """One token: batch = {tokens: (b,1), pos: int, image_embeds?}.
+        Returns (logits, cache): the cache is updated in place (the
+        reference returns a new one), so the step consumes it."""
+        cfg = self.cfg
+        pos = int(batch["pos"])
+        dtype = L.dtype_of(cfg.dtype)
+        if cfg.external_embeddings:
+            x = batch["embeds"].to(dtype)
+        else:
+            x = L.embed_lookup(params["embed"], batch["tokens"], cfg, dtype)
+        for si, (kinds, _) in enumerate(self.segments):
+            for layer_p, layer_c in zip(unstacked(params[f"seg{si}"]),
+                                        unstacked(cache[f"seg{si}"])):
+                for bi, kind in enumerate(kinds):
+                    key = f"b{bi}_{kind}"
+                    p = layer_p[key]
+                    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+                    if kind == "cross":
+                        # static image kv: attend, no cache update
+                        o = _cross_decode(p["xattn"], h, layer_c[key], cfg)
+                        x = x + torch.tanh(p["xgate"].to(o.dtype)) * o
+                    else:
+                        o, _ = L.attn_decode(p["attn"], h, layer_c[key], cfg,
+                                             pos=pos)
+                        x = x + o
+                    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+                    if kind == "moe":
+                        y, _ = L.moe_apply(p["moe"], h, cfg,
+                                           group_size=cfg.moe_group_size,
+                                           capacity_factor=cfg.capacity_factor)
+                    else:
+                        y = L.mlp_apply(p["mlp"], h)
+                    x = x + y
+        return L.lm_logits(params["embed"], x, cfg), cache
+
+
+def _cross_decode(p, x, xcache, cfg: ModelConfig):
+    """Cross-attention for a single token against static image kv."""
+    b, _, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, 1, cfg.num_heads, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+    k, v = xcache["xk"], xcache["xv"]
+    o = L.decode_attention(q, k, v, k.shape[1])
+    o = o.reshape(b, 1, cfg.num_heads * hd)
+    return o @ p["wo"].to(x.dtype)

@@ -351,12 +351,43 @@ def test_live_big_deployment_raises():
 
 
 @pytest.mark.parametrize("cfg", [dict(num_experts=4, experts_per_token=2),
-                                 dict(family="vlm", cross_attn_every=2),
+                                 dict(family="vlm", cross_attn_every=2,
+                                      num_image_tokens=8),
                                  dict(remat="full")],
                          ids=["moe", "cross-attention", "remat"])
-def test_unported_transformer_options_raise(cfg):
+def test_unported_transformer_options_raise(cfg, rng):
+    """MoE, cross-attention and remat, the options the port once refused,
+    now each held against the reference: loss (with MoE's aux) and every
+    gradient leaf at rtol 1e-4 (the VLM's cross-attention weights, behind
+    an xgate of 0, get exactly zero gradient), and remat's gradients equal
+    to remat="none" bit for bit."""
     base = dict(name="x", family="dense", num_layers=2, d_model=64,
                 num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=97,
-                remat="none")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TransformerLM(ModelConfig(**{**base, **cfg}), device="cpu")
+                remat="none", dtype="float32", param_dtype="float32",
+                attn_chunk=16)
+    jm = JTransformerLM(JModelConfig(**{**base, **cfg}))
+    tm = TransformerLM(ModelConfig(**{**base, **cfg}), device="cpu")
+    jp = jax.tree.map(np.array, jm.init(jax.random.key(15))[0])
+    tp = params_from_jax(jp, "cpu",
+                         like=TransformerLM(tm.cfg, device="meta").init(None))
+    b = {"tokens": rng.integers(0, 97, size=(2, 32)).astype(np.int32),
+         "targets": rng.integers(0, 97, size=(2, 32)).astype(np.int32)}
+    if "cross_attn_every" in cfg:
+        b["image_embeds"] = rng.normal(size=(2, 8, 64)).astype(np.float32)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    zero = tuple(f"['xattn']['{w}']" for w in ("wq", "wk", "wv", "wo")) \
+        if "cross_attn_every" in cfg else ()
+    _loss_and_grads_match(lambda p: jm.loss(p, jb)[0], jp,
+                          lambda p: tm.loss(p, tb)[0], tp, zero=zero)
+    if cfg.get("num_experts"):
+        assert float(tm.loss(tp, tb)[1]["aux"]) > 0
+    if "remat" in cfg:
+        plain = TransformerLM(ModelConfig(**base), device="cpu")
+        grads = []
+        for model in (tm, plain):
+            leaves, treedef = _tree.flatten(tp)
+            leaves = [l.clone().requires_grad_(True) for l in leaves]
+            loss = model.loss(_tree.unflatten(treedef, leaves), tb)[0]
+            grads.append(torch.autograd.grad(loss, leaves))
+        assert all(torch.equal(a, c) for a, c in zip(*grads))

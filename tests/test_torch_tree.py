@@ -84,3 +84,27 @@ def test_map_and_unflatten_check_structure():
         _tree.unflatten(treedef, [1])
     with pytest.raises(ValueError):
         _tree.unflatten(treedef, [1, 2, 3])
+
+
+def test_params_from_jax_carries_bf16_bit_for_bit():
+    """A bf16 reference tree (qwen3-8b's smoke config, bf16 as every LM
+    config defaults) crosses bit for bit, with no detour through f32; the
+    ``like`` check still refuses a port tree of another dtype."""
+    from repro.configs import smoke_config as jsmoke
+    from repro.models import build_model as jbuild
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+
+    jp = jax.tree.map(np.asarray,
+                      jbuild(jsmoke("qwen3-8b")).init(jax.random.key(0))[0])
+    like = build_model(smoke_config("qwen3-8b"), device="meta").init(None)
+    got = params_from_jax(jp, "cpu", like=like)
+    want = jax.tree.leaves(jp)
+    assert all(w.dtype.name == "bfloat16" for w in want)
+    for g, w in zip(_tree.leaves(got), want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_array_equal(g.view(torch.int16).numpy(),
+                                      w.view(np.int16))
+    f32_like = _tree.map(lambda t: t.float(), like)
+    with pytest.raises(ValueError, match="bfloat16"):
+        params_from_jax(jp, "cpu", like=f32_like)

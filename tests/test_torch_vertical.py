@@ -258,15 +258,9 @@ def test_no_adapter_for_vit_and_distilbert(cls, cfg):
                                     dict(family="moe", num_experts=4,
                                          experts_per_token=2)])
 def test_unsplittable_stacks_refused_as_reference(change):
-    """The port's TransformerLM refuses MoE at construction, so its
-    segment check is reached through a bare instance of the class."""
     jm = JTransformerLM(JModelConfig(**{**TRANSFORMER, **change}))
     cfg = ModelConfig(**{**TRANSFORMER, **change}, remat="none")
-    if "num_experts" in change:
-        tm = TransformerLM.__new__(TransformerLM)
-        tm.cfg = cfg
-    else:
-        tm = TransformerLM(cfg, device="cpu")
+    tm = TransformerLM(cfg, device="cpu")
     with pytest.raises(ValueError) as got:
         tvert.SplitPlan(tm, 1)
     with pytest.raises(ValueError) as want:
