@@ -100,7 +100,31 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (b) every causal arch's smoke config in f32, 8 decode steps, and
    ``hubert-xlarge``'s forward, card against CPU from the same parameters
    at 1e-4 of the largest logit (llama4-maverick's interleaved MoE with a
-   shared expert and llama-3.2-vision's cross-attention among them).
+   shared expert and llama-3.2-vision's cross-attention among them);
+15. the LM zoo's training path, through ``launch/train.train`` and
+   ``launch/step_builders``: (a) ``zamba2-1.2b`` (hybrid) and
+   ``granite-moe-1b-a400m`` (MoE) at full width and depth, bf16
+   parameters drawn on the card, AdamW with f32 moments, each config's
+   own remat, 16 steps of the training CLI's batch (4 x 64, lr 1e-3,
+   warmup 5): finite losses that end below where they start, element
+   counts equal to ``registry.param_count``; the same run stopped at
+   step 8 with a checkpoint, restored by a fresh ``train`` call and run
+   on, bit for bit the uninterrupted run (parameters, moments, count and
+   losses) under ``torch.use_deterministic_algorithms``; ms per step,
+   tokens/s, peak device memory, and ``granite-moe``'s peak under remat
+   ``none``, ``dots`` and ``full``; (b) the cross-pod FL round of
+   ``granite-moe-1b-a400m`` at full width, the 2 pods of
+   ``MULTI_POD_MESH``'s pod axis on one card, 2 local AdamW steps a pod on
+   its own 4 x 64 batches, 3 rounds exchanging int8 deltas and one
+   exchanging f32 deltas: after each, every pod equals the new anchor,
+   the anchor equals its plain recomputation from the pods' deltas bit for
+   bit, and (int8) lies within one int8 level plus one bf16 ULP of the
+   f32-mean anchor; ms per round, peak memory and the exchange's bytes in
+   int8 against f32; the six kernels' launch counts over (a) and (b)
+   asserted 0; (c) every arch's smoke config in f32, 3 train steps
+   (qwen3-8b's again with 2 microbatches), and a 2-pod int8 FL round of
+   qwen3-8b's, card against CPU with cuDNN's deterministic algorithms, at
+   the CPU tests' bars (``tests/test_torch_train.py``).
 
 The three FedAvg kernels flush subnormals as XLA does on the CPU and sum
 the clients in order, so each is held bit for bit against its plain
@@ -140,11 +164,15 @@ import functools
 import json
 import gc
 import math
+import os
 import resource
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -156,11 +184,13 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import _tree  # noqa: E402
 from repro_torch.compression.stages import QsgdCodec, TopkCodec  # noqa: E402
 from repro_torch.configs import ARCH_ORDER, get_config, smoke_config  # noqa: E402
-from repro_torch.configs.base import FLConfig  # noqa: E402
+from repro_torch.configs.base import (MULTI_POD_MESH, SMOKE_MESH,  # noqa: E402
+                                      FLConfig, MeshConfig, ShapeConfig,
+                                      TrainConfig)
 from repro_torch.configs.paper_tiers import TIERS  # noqa: E402
 from repro_torch.core import TensorPayload  # noqa: E402
 from repro_torch.core.channel import make_channel  # noqa: E402
-from repro_torch.data import make_silo_datasets  # noqa: E402
+from repro_torch.data import lm_batch_iterator, make_silo_datasets  # noqa: E402
 from repro_torch.fl import vertical as tv  # noqa: E402
 from repro_torch.fl.aggregator import fedavg, fedavg_quantized  # noqa: E402
 from repro_torch.kernels import fedavg_reduce as fr  # noqa: E402
@@ -168,10 +198,15 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import topk as tk  # noqa: E402
 from repro_torch.launch import fl_train, serve  # noqa: E402
+from repro_torch.launch import step_builders as sb  # noqa: E402
+from repro_torch.launch import train as lt  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, make_smoke_mesh  # noqa: E402
+from repro_torch.launch.step_builders import bundle_for  # noqa: E402
 from repro_torch.models import (active_param_count, build_model,  # noqa: E402
                                 param_count)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.bert import BertConfig, DistilBert  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.models.vision import (MobileNetConfig, MobileNetV3,  # noqa: E402
                                        ResNet, ResNetConfig, ViT, ViTConfig)
 
@@ -327,10 +362,18 @@ def short_name(kernel: str) -> str:
 
 
 def bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
-    """Equal bit for bit (int32 views: torch.equal calls -0.0 equal to
+    """Equal bit for bit (integer views: torch.equal calls -0.0 equal to
     +0.0)."""
     return got.shape == want.shape and got.dtype == want.dtype \
-        and torch.equal(got.view(torch.int32), want.view(torch.int32))
+        and torch.equal(raw(got), raw(want))
+
+
+def raw(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits as same-width integers."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
 
 
 def launches() -> dict:
@@ -2321,12 +2364,16 @@ def decode_step_bytes(model, params, cache, valid: int) -> int:
 
 
 def _tree_items(tree, path=()):
-    """(key path, leaf) over a nested dict."""
-    for k in sorted(tree):
-        if isinstance(tree[k], dict):
+    """(key path, leaf) over nested dicts, lists and named tuples."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
             yield from _tree_items(tree[k], path + (k,))
-        else:
-            yield path + (k,), tree[k]
+    elif isinstance(tree, (list, tuple)):
+        fields = getattr(tree, "_fields", range(len(tree)))
+        for k, c in zip(fields, tree):
+            yield from _tree_items(c, path + (str(k),))
+    else:
+        yield path, tree
 
 
 def decode_against_forward(run, model, params, prompts):
@@ -2487,6 +2534,476 @@ def serving_reference_check(device) -> None:
                                  f"CPU")
 
 
+# -- phase 15: the LM zoo's training path at full width --------------------
+# the hybrid and the MoE family, each small enough for AdamW's f32 moments
+# on one card (qwen3-8b would need ~98 GB); the reference CLI's shape
+TRAIN_ARCHS = ("zamba2-1.2b", "granite-moe-1b-a400m")
+TRAIN_BATCH, TRAIN_SEQ = 4, 64
+TRAIN_STEPS = 16
+RESUME_AT = 8  # the resumed run's checkpoint: half way
+REMAT_ARCH = "granite-moe-1b-a400m"  # its remat none / dots / full differ
+REMAT_STEPS = 2
+FL_ARCH = "granite-moe-1b-a400m"
+FL_PODS = MULTI_POD_MESH.axis_size("pod")
+FL_LOCAL = 2  # the dry run's fl_local_steps default
+FL_ROUNDS = 3  # int8, then one round with the f32 exchange
+POD_AXES = ("pod", "data", "model")
+SMOKE_TRAIN_STEPS = 3
+# the CPU tests' bars (tests/test_torch_train.py): leaves at 1e-4 of their
+# largest entry; microbatched steps, whose gradients are cast to bf16, at
+# one bf16 ULP; leaves whose first gradient is exactly zero, so that AdamW
+# steps them next from gradients near its eps, at 1e-4 of the tree's
+# largest: Zamba's LoRA (b starts at 0), and every leaf of the VLM ("" is
+# in every path): its cross-attention starts gated off (xgate 0), AdamW
+# steps it from near-zero gradients at step 2, and from step 3 that noise
+# runs through every layer; card against CPU read 2.003 of the per-leaf
+# bar at seg0/b1_self/attn/wo (the same in two calls)
+TREE_WIDE = {"zamba2-1.2b": ("lora",), "llama-3.2-vision-11b": ("",)}
+BF16_ULP = 2.0 ** -8
+
+
+def train_config(steps: int, **kw) -> TrainConfig:
+    """The training CLI's optimizer: AdamW, lr 1e-3, warmup 5."""
+    return TrainConfig(learning_rate=1e-3, warmup_steps=5,
+                       total_steps=steps, **kw)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms`` on (warning where an op has
+    no deterministic form), yielding the warnings raised; cuBLAS runs on
+    one stream here, and the workspace setting only stills its check."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("default")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield caught
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def quiet(*_):
+    pass
+
+
+def train_arch(arch: str, card: str, device, ckpt_root: str) -> None:
+    """Phase 15 (a), one arch: ``launch/train.train`` at full width (bf16
+    parameters drawn on the card, AdamW with f32 moments, the config's own
+    remat) for TRAIN_STEPS steps of the CLI's batch; then the same run
+    stopped at RESUME_AT with a checkpoint, restored by a fresh ``train``
+    call and run on: bit for bit the uninterrupted run."""
+    cfg = get_config(arch)
+    shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = train_config(TRAIN_STEPS)
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(15)
+
+    fresh_peak()
+    with deterministic_algorithms() as caught:
+        t0 = time.perf_counter()
+        whole = lt.train(cfg, shape, tcfg, TRAIN_STEPS, device=device,
+                         generator=gen(), log=quiet)
+        whole_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n = sum(l.numel() for l in _tree.leaves(whole.params))
+        expect(arch, "parameters", n, param_count(cfg))
+        state_bytes = sum(l.numel() * l.element_size()
+                          for l in _tree.leaves((whole.params,
+                                                 whole.opt_state)))
+        step_ms = statistics.median(whole.step_s[1:]) * 1e3
+        ls = whole.losses
+        log(f"train {arch} ({cfg.family}) full width, bf16 parameters, "
+            f"AdamW f32 moments, remat={cfg.remat}: {n:,} parameters, "
+            f"{state_bytes:,} B of parameters and moments; "
+            f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} in "
+            f"{whole_s:.3f} s wall (model, draw and steps); step 0 "
+            f"{whole.step_s[0] * 1e3:.3f} ms, then {step_ms:.3f} ms per step "
+            f"(median; min {min(whole.step_s[1:]) * 1e3:.3f}, max "
+            f"{max(whole.step_s[1:]) * 1e3:.3f}), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f} tokens/s; loss "
+            f"{ls[0]:.4f} -> {ls[-1]:.4f} (min {min(ls):.4f}); peak device "
+            f"memory {peak / 2 ** 30:.3f} GiB")
+        # each step's loss is on its own batch, and they spread by ~0.1
+        # (zamba2 at full width on the H100: 10.716 -> 10.723, min 10.651):
+        # learning is read on one batch, the first, before and after
+        model = build_model(cfg, device=device)
+        batch0 = lt.lm_batch(cfg, next(lm_batch_iterator(
+            0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)), 0, device)
+        with torch.no_grad():
+            after = float(model.loss(whole.params, batch0)[0])
+        log(f"train {arch}: loss on the first batch {ls[0]:.4f} at the start, "
+            f"{after:.4f} after the {TRAIN_STEPS} steps")
+        if not all(math.isfinite(x) for x in ls) or not after < ls[0]:
+            raise AssertionError(f"train {arch}: losses {ls}, the first "
+                                 f"batch's after the run {after}")
+        d = tempfile.mkdtemp(prefix=f"ckpt-{arch}-", dir=ckpt_root)
+        try:
+            t0 = time.perf_counter()
+            first = lt.train(cfg, shape, tcfg, RESUME_AT, ckpt_dir=d,
+                             ckpt_every=RESUME_AT, device=device,
+                             generator=gen(), log=quiet)
+            first_s = time.perf_counter() - t0
+            first_losses, first_steps = first.losses, sum(first.step_s)
+            disk = sum(f.stat().st_size for f in Path(d).rglob("*")
+                       if f.is_file())
+            del first
+            release()
+            t0 = time.perf_counter()
+            rest = lt.train(cfg, shape, tcfg, TRAIN_STEPS, ckpt_dir=d,
+                            ckpt_every=TRAIN_STEPS + 1, device=device,
+                            generator=torch.Generator(
+                                device=device).manual_seed(99), log=quiet)
+            rest_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        pairs = list(zip(_tree.leaves((rest.params, rest.opt_state)),
+                         _tree.leaves((whole.params, whole.opt_state))))
+        same = all(bits_equal(a, b) for a, b in pairs)
+        worst = max(float((a.float() - b.float()).abs().max())
+                    for a, b in pairs if a.is_floating_point())
+    ops_ = sorted({str(w.message).split(" does not have")[0]
+                   for w in caught if "deterministic" in str(w.message)})
+    log(f"train {arch}: resumed run ({RESUME_AT} steps, a checkpoint of "
+        f"{disk:,} B, a fresh train call restoring it, "
+        f"{TRAIN_STEPS - RESUME_AT} more steps) vs the uninterrupted run, "
+        f"under "
+        f"torch.use_deterministic_algorithms: parameters, moments and count "
+        f"bit for bit {same} (max abs diff {worst:.3e}); losses equal "
+        f"{first_losses + rest.losses == whole.losses}; wall {first_s:.3f} s "
+        f"to step {RESUME_AT} with the save ({first_s - first_steps:.3f} s "
+        f"besides the steps: model, draw, save), {rest_s:.3f} s from the "
+        f"restore on ({rest_s - sum(rest.step_s):.3f} s besides the steps: "
+        f"model, draw, restore); ops that "
+        f"warned for want of a deterministic form: {ops_ or 'none'}")
+    if not same or first_losses + rest.losses != whole.losses \
+            or rest.start_step != RESUME_AT:
+        raise AssertionError(f"train {arch}: the resumed run differs")
+    del rest, pairs
+    release()
+    profile_step(arch, cfg, shape, tcfg, whole, device)
+    del whole
+    release()
+
+
+def profile_step(arch, cfg, shape, tcfg, run, device) -> None:
+    """One more training step from the run's end state under
+    ``torch.profiler``: launches, device time and its share of the step."""
+    bundle = sb.make_train_step(cfg, shape, make_smoke_mesh(device),
+                                SMOKE_MESH, tcfg)
+    data = lm_batch_iterator(1, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
+    step_ms = statistics.median(run.step_s[1:]) * 1e3
+    rows = device_breakdown(lambda: bundle.fn(run.params, run.opt_state,
+                                              batch, TRAIN_STEPS), reps=2)
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    top3 = ", ".join(f"{short_name(k)[:40]} {us / 1e3:.3f} ms x {n:.0f}"
+                     for k, us, n in rows[:3])
+    log(f"train {arch}: one step under torch.profiler: "
+        f"{sum(r[2] for r in rows):.0f} kernel launches, {busy_ms:.3f} ms of "
+        f"device time, {busy_ms / step_ms:.3f} of the median step; largest "
+        f"{top3}")
+
+
+def remat_memory(card: str, device) -> None:
+    """Phase 15 (a): REMAT_ARCH's loss and gradients at full width (the
+    part of a step remat changes; the optimizer's update, whose old and
+    new states set the step's peak, is the same under each) by remat
+    policy: the peak device memory above the parameters, and ms."""
+    cfg = get_config(REMAT_ARCH)
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(15))
+    data = lm_batch_iterator(0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
+    base = torch.cuda.memory_allocated()
+    out = []
+    for policy in ("none", "dots", "full"):
+        model = build_model(dataclasses.replace(cfg, remat=policy),
+                            device=device)
+        ms = []
+        for _ in range(REMAT_STEPS + 1):
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            synchronize()
+            t0 = time.perf_counter()
+            loss, grads = sb.value_and_grad(model, params, batch)
+            synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            del loss, grads
+        peak = torch.cuda.max_memory_allocated() - base
+        out.append(f"{policy} {peak / 2 ** 30:.3f} GiB ({ms[-1]:.3f} ms)")
+    log(f"train {REMAT_ARCH}: loss and gradients at {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, peak device memory above the {base / 2 ** 30:.3f} GiB "
+        f"of parameters (gradients and activations) and ms, by remat policy: "
+        f"{'; '.join(out)}")
+    del params
+    release()
+
+
+def exchange_expected(a0, pre, compression: str):
+    """The round's new anchor leaf done again from the pods' own deltas,
+    plainly: the max, the rounding and the int32 sum (int8), or the f32
+    mean; and, for int8, the level (``scale``)."""
+    delta = pre.float() - a0.float()[None]
+    if compression != "int8":
+        return (a0.float() + delta.sum(0) / pre.shape[0]).to(a0.dtype), None
+    scale = delta.abs().max() / 127.0 + 1e-12
+    q = torch.clamp(torch.round(delta / scale), -127, 127).to(torch.int32)
+    mean = q.sum(0).float() * scale / pre.shape[0]
+    return (a0.float() + mean).to(a0.dtype), scale
+
+
+def fl_round_checks(anchor, pre, new_anchor, stacked, compression) -> float:
+    """-> the largest distance from the f32-mean anchor in levels (int8).
+    Raises unless every pod equals the new anchor and each leaf equals
+    its plain recomputation bit for bit; with int8, each entry within one
+    level plus one bf16 ULP of the f32-mean anchor, rounded as the anchor
+    is."""
+    worst = 0.0
+    for a0, p, na, s in zip(_tree.leaves(anchor), pre,
+                            _tree.leaves(new_anchor), _tree.leaves(stacked)):
+        want, scale = exchange_expected(a0, p, compression)
+        if not bits_equal(na, want):
+            raise AssertionError("fl_round: the anchor differs from its plain "
+                                 "recomputation")
+        if not all(torch.equal(s[i], na) for i in range(s.shape[0])):
+            raise AssertionError("fl_round: a pod differs from the anchor")
+        if scale is None:
+            continue
+        mean32 = (a0.float() + (p.float() - a0.float()[None]).mean(0)).to(
+            na.dtype).float()
+        ulp = torch.where(mean32 == 0, torch.zeros_like(mean32),
+                          torch.finfo(na.dtype).eps * 2.0 ** torch.floor(
+                              torch.log2(mean32.abs())))
+        err = (na.float() - mean32).abs() - ulp
+        worst = max(worst, float(err.max()) / float(scale))
+        if worst > 1.0:
+            raise AssertionError(f"fl_round: {worst:.3f} levels from the f32 "
+                                 "mean")
+    return worst
+
+
+def fl_round_path(card: str, device) -> None:
+    """Phase 15 (b): ``make_fl_round_step`` on FL_ARCH at full width, the
+    pod axis of MULTI_POD_MESH (2 pods) on one card, FL_LOCAL AdamW steps a
+    pod a round on its own TRAIN_BATCH x TRAIN_SEQ batches; FL_ROUNDS
+    rounds exchanging int8 deltas, then one exchanging f32 deltas."""
+    cfg = get_config(FL_ARCH)
+    shape = ShapeConfig("fl", TRAIN_SEQ, TRAIN_BATCH * FL_PODS, "train")
+    mesh = make_mesh(MeshConfig((1, 1, 1), POD_AXES), device)
+    bundles = {c: bundle_for("fl_round", cfg, shape, mesh, MULTI_POD_MESH,
+                             train_config(FL_ROUNDS + 1,
+                                          crosspod_compression=c),
+                             local_steps=FL_LOCAL)
+               for c in ("int8", "none")}
+    fresh_peak()
+    model = bundles["int8"].model
+    anchor = model.init(torch.Generator(device=device).manual_seed(15))
+    stacked = sb.stack_pods(anchor, FL_PODS)
+    opt = sb.stack_pods(adamw_init(anchor, TrainConfig()), FL_PODS)
+    data = lm_batch_iterator(15, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    n = sum(l.numel() for l in _tree.leaves(anchor))
+    n_leaves = len(_tree.leaves(anchor))
+    for rnd in range(FL_ROUNDS + 1):
+        comp = "int8" if rnd < FL_ROUNDS else "none"
+        fn = bundles[comp].fn
+        per = [[next(data) for _ in range(FL_LOCAL)] for _ in range(FL_PODS)]
+        batches = {k: torch.stack([torch.stack(
+            [torch.from_numpy(per[i][j][k]) for j in range(FL_LOCAL)])
+            for i in range(FL_PODS)]).to(device) for k in per[0][0]}
+        synchronize()
+        t0 = time.perf_counter()
+        stacked, opt, loss = fn.local_steps(stacked, opt, batches, rnd)
+        synchronize()
+        local_s = time.perf_counter() - t0
+        pre = [l.clone() for l in _tree.leaves(stacked)]
+        synchronize()
+        t0 = time.perf_counter()
+        stacked, new_anchor = fn.exchange(anchor, stacked)
+        synchronize()
+        exchange_s = time.perf_counter() - t0
+        levels = fl_round_checks(anchor, pre, new_anchor, stacked, comp)
+        del pre
+        sent = (FL_PODS * n + 4 * n_leaves if comp == "int8"
+                else 4 * FL_PODS * n)
+        log(f"fl_round {FL_ARCH} round {rnd} ({comp}): {FL_PODS} pods x "
+            f"{FL_LOCAL} local steps in {local_s * 1e3:.3f} ms, exchange "
+            f"{exchange_s * 1e3:.3f} ms, {(local_s + exchange_s) * 1e3:.3f} "
+            f"ms the round; loss {float(loss):.4f}; every pod equal to the "
+            f"new anchor, the anchor bit for bit its plain recomputation"
+            + (f", within {levels:.3f} int8 level (+1 bf16 ULP) of the f32 "
+               f"mean" if comp == "int8" else "")
+            + f"; the exchange would carry {sent:,} B ({FL_PODS} x {n:,} "
+            + ("int8 + 4 B a leaf's scale x "
+               f"{n_leaves}, against {4 * FL_PODS * n:,} B in f32)"
+               if comp == "int8" else "f32)")
+            + f"; counts {opt.count.tolist()}")
+        if opt.count.tolist() != [FL_LOCAL * (rnd + 1)] * FL_PODS:
+            raise AssertionError("fl_round: the optimizer state was reset")
+        anchor = new_anchor
+    log(f"fl_round {FL_ARCH}: {memory_note()}")
+    del anchor, stacked, opt, new_anchor, bundles, model
+    release()
+
+
+def training_path(card: str, device) -> None:
+    """Phase 15 (a) and (b); the six kernels' launch counts set to 0 before
+    and read after, over both, which reach none of them."""
+    zero_launches()
+    ckpt_root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        for arch in TRAIN_ARCHS:
+            train_arch(arch, card, device, ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    remat_memory(card, device)
+    fl_round_path(card, device)
+    counts = launches()
+    log(f"phase 15 launches of the six kernels: {counts}")
+    if any(counts.values()):
+        raise AssertionError("the LM training path launched a FedAvg, "
+                             "quantize or top-k kernel")
+
+
+def smoke_batches(cfg, n: int, b: int, s: int, seed: int):
+    """``n`` seeded batches on the host: tokens (or f32 frame embeddings),
+    the VLM's image embeddings, targets."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        batch = {}
+        if cfg.external_embeddings:
+            batch["embeds"] = torch.randn((b, s, cfg.d_model), generator=g)
+        else:
+            batch["tokens"] = torch.randint(0, cfg.vocab_size, (b, s),
+                                            generator=g, dtype=torch.int32)
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.randn(
+                (b, cfg.num_image_tokens, cfg.d_model), generator=g)
+        batch["targets"] = torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=g, dtype=torch.int32)
+        out.append(batch)
+    return out
+
+
+def leaves_within(got_tree, want_tree, bar: float, wide=()):
+    """-> (the worst error over the leaves as a share of the bar, that
+    leaf's path): the bar times each leaf's largest entry, or the tree's
+    for a leaf whose path holds one of ``wide``. Above 1 fails."""
+    got = {"/".join(p): l for p, l in _tree_items(got_tree)}
+    want = {"/".join(p): l for p, l in _tree_items(want_tree)}
+    top = max(float(w.float().abs().max()) for w in want.values())
+    worst = (0.0, "")
+    for path, w in want.items():
+        g = got[path].cpu().float()
+        w = w.float()
+        scale = top if any(x in path for x in wide) else \
+            float(w.abs().max())
+        err = float((g - w).abs().max())
+        share = err / (bar * scale) if scale else \
+            (0.0 if err == 0 else math.inf)
+        worst = max(worst, (share, path))
+    return worst
+
+
+def training_reference_check(device) -> None:
+    """Phase 15 (c): every arch's smoke config in f32, SMOKE_TRAIN_STEPS
+    train steps (qwen3-8b's again with 2 microbatches), card against CPU
+    from the same parameters and batches, with cuDNN's deterministic
+    algorithms: parameters and both moments at 1e-4 of each leaf's
+    largest entry (the CPU tests' bars, TREE_WIDE and BF16_ULP included),
+    loss and gnorm at 1e-5; then one 2-pod int8 FL round of qwen3-8b's
+    smoke config the same way, the anchor within one int8 level plus 1e-4
+    of each leaf's largest entry."""
+    shape = ShapeConfig("t", 16, 4, "train")
+    runs = [(a, 1) for a in ARCH_ORDER] + [("qwen3-8b", 2)]
+    with cudnn_deterministic(True):
+        for arch, micro in runs:
+            cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
+                                      param_dtype="float32")
+            tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2,
+                               total_steps=10, microbatches=micro)
+            params = build_model(cfg, device="cpu").init(
+                torch.Generator().manual_seed(17))
+            batches = smoke_batches(cfg, SMOKE_TRAIN_STEPS, 4, 16, 18)
+            out = []
+            for dev in ("cpu", device):
+                b = bundle_for("train", cfg, shape, make_smoke_mesh(dev),
+                               SMOKE_MESH, tcfg)
+                p = _tree.map(lambda a: a.to(dev), params)
+                o = adamw_init(p, tcfg)
+                metrics = []
+                for step, batch in enumerate(batches):
+                    p, o, m = b.fn(p, o, {k: v.to(dev) for k, v in
+                                          batch.items()}, step)
+                    metrics.append((float(m["loss"]), float(m["gnorm"])))
+                out.append((p, o, metrics))
+            (cp, co, cm), (gp, go, gm) = out
+            bar = BF16_ULP if micro > 1 else 1e-4
+            wide = TREE_WIDE.get(arch, ())
+            worst, where = max(leaves_within(gp, cp, bar, wide),
+                               leaves_within(go.m, co.m, bar, wide),
+                               leaves_within(go.v, co.v, bar, wide))
+            scope = ""
+            if wide:
+                scope = f"; {', '.join(wide) or 'every leaf'} of the tree's"
+            metric_err = max(abs(g - c) / abs(c) for gs, cs in zip(gm, cm)
+                             for g, c in zip(gs, cs))
+            log(f"smoke train {arch} f32, {SMOKE_TRAIN_STEPS} steps"
+                f"{', 2 microbatches' if micro > 1 else ''}, card vs CPU: "
+                f"parameters and moments at {worst:.3e} of the bar ({bar} of "
+                f"each leaf's largest entry{scope}), worst at {where}; loss "
+                f"and gnorm "
+                f"{metric_err:.3e} relative (bar 1e-5)")
+            if worst > 1.0 or metric_err > 1e-5:
+                raise AssertionError(f"smoke train {arch}: the card disagrees "
+                                     "with the CPU")
+        fl_round_reference_check(device)
+
+
+def fl_round_reference_check(device) -> None:
+    cfg = dataclasses.replace(smoke_config("qwen3-8b"), dtype="float32",
+                              param_dtype="float32")
+    shape = ShapeConfig("t", 16, 4, "train")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                       crosspod_compression="int8")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(19))
+    batch = smoke_batches(cfg, 1, FL_PODS * FL_LOCAL * 2, 16, 20)[0]
+    batch = {k: v.reshape((FL_PODS, FL_LOCAL, 2) + v.shape[1:])
+             for k, v in batch.items()}
+    out = []
+    for dev in ("cpu", device):
+        b = bundle_for("fl_round", cfg, shape,
+                       make_mesh(MeshConfig((1, 1, 1), POD_AXES), dev),
+                       MeshConfig((FL_PODS, 1, 1), POD_AXES), tcfg,
+                       local_steps=FL_LOCAL)
+        a = _tree.map(lambda x: x.to(dev), params)
+        ps, o = sb.stack_pods(a, FL_PODS), sb.stack_pods(
+            adamw_init(a, tcfg), FL_PODS)
+        ps, o, pre_loss = b.fn.local_steps(ps, o, {k: v.to(dev) for k, v in
+                                                   batch.items()}, 0)
+        deltas = [(l.float() - x.float()[None]) for l, x in
+                  zip(_tree.leaves(ps), _tree.leaves(a))]
+        ps, anchor = b.fn.exchange(a, ps)
+        out.append((anchor, o, deltas, float(pre_loss)))
+    (ca, co, cd, cl), (ga, go, _, gl) = out
+    worst = 0.0
+    for c, g, d in zip(_tree.leaves(ca), _tree.leaves(ga), cd):
+        level = float(d.abs().max()) / 127.0
+        err = float((g.cpu() - c).abs().max())
+        worst = max(worst, err / (level + 1e-4 * float(c.abs().max())))
+    opt_worst, _ = max(leaves_within(go.m, co.m, 1e-4),
+                       leaves_within(go.v, co.v, 1e-4))
+    log(f"smoke fl_round qwen3-8b f32, {FL_PODS} pods x {FL_LOCAL} local "
+        f"steps, int8, card vs CPU: anchor at {worst:.3e} of one level + 1e-4 "
+        f"of each leaf's largest entry, moments at {opt_worst:.3e} of 1e-4 of "
+        f"each leaf's largest; loss {gl:.6f} / {cl:.6f}")
+    if worst > 1.0 or opt_worst > 1.0 or abs(gl - cl) > 1e-5 * abs(cl):
+        raise AssertionError("smoke fl_round: the card disagrees with the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2553,6 +3070,9 @@ def main() -> int:
     serving_path(card, device)
     serving_reference_check(device)
     phase_done("14 (the LM zoo's serving path)")
+    training_path(card, device)
+    training_reference_check(device)
+    phase_done("15 (the LM zoo's training path)")
 
     # launches: over the main paths each kernel is on, each path run with
     # the counts at 0 (fedavg_reduce: the sync rounds, the event runs and

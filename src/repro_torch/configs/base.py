@@ -1,7 +1,8 @@
 """Port of ``src/repro/configs/base.py``: ``ModelConfig`` (the LM
 families' architecture description), ``ShapeConfig`` (one input shape),
-``FLConfig`` and its one conversion to a ``Scenario``. The mesh and
-training configs arrive with the launch layer.
+``MeshConfig`` (a physical mesh and how logical axes map onto it) with
+the reference's four meshes, ``TrainConfig`` (the optimizer and step),
+``FLConfig`` and its one conversion to a ``Scenario``.
 """
 from __future__ import annotations
 
@@ -119,6 +120,63 @@ class ShapeConfig:
         if self.kind == "decode":
             return self.global_batch  # one new token per sequence
         return self.global_batch * self.seq_len
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Physical mesh + logical-axis resolution plan."""
+
+    shape: tuple
+    axis_names: tuple
+    # mesh axes that implement FSDP-style parameter/optimizer sharding
+    fsdp_axes: tuple = ("data",)
+    # mesh axes that implement tensor parallelism
+    tensor_axes: tuple = ("model",)
+    # mesh axes over which the batch is split
+    batch_axes: tuple = ("pod", "data")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    def axis_size(self, name: str) -> int:
+        if name not in self.axis_names:
+            return 1
+        return self.shape[self.axis_names.index(name)]
+
+
+SINGLE_POD_MESH = MeshConfig(shape=(16, 16), axis_names=("data", "model"))
+MULTI_POD_MESH = MeshConfig(
+    shape=(2, 16, 16),
+    axis_names=("pod", "data", "model"),
+    fsdp_axes=("data",),
+)
+# FSDP over pod+data: used for the very largest models (llama4-maverick).
+MULTI_POD_MESH_FSDP_POD = dataclasses.replace(MULTI_POD_MESH, fsdp_axes=("pod", "data"))
+SMOKE_MESH = MeshConfig(shape=(1, 1), axis_names=("data", "model"))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer / step configuration."""
+
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    optimizer: str = "adamw"  # adamw | sgd
+    moment_dtype: str = "float32"  # float32 | bfloat16 (memory-reduced states)
+    microbatches: int = 1  # gradient accumulation steps per global step
+    # cross-pod (cross-silo) sync policy — the paper's FL round at pod scale
+    crosspod_sync_every: int = 1  # 1 = fully synchronous DP over 'pod'
+    crosspod_compression: str = "none"  # none | int8 | topk
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,10 +5,12 @@ preallocated cache, cross-attention, the MLP, the GShard-style MoE,
 embeddings) and the loss.
 
 Parameters are nested dicts of tensors with the reference's keys, shapes
-and dtypes; the reference's logical axes (for its sharding rules) have no
-counterpart here. ``flash_attention`` is plain jnp in the reference, not
-a Pallas kernel, so here it is plain torch with the same chunking, mask
-value and merge. Decode writes its cache in place (``attn_decode``),
+and dtypes. Each draw also names the reference's logical axes (for the
+sharding rules, ``repro_torch.sharding``): an ``Init.axes()`` builder
+returns those tuples in the place of tensors, so a model's ``init`` run
+on it gives the axes tree. ``flash_attention`` is plain jnp in the
+reference, not a Pallas kernel, so here it is plain torch with the same
+chunking, mask value and merge. Decode writes its cache in place (``attn_decode``),
 where the reference returns an updated copy.
 """
 from __future__ import annotations
@@ -47,18 +49,33 @@ class Init:
     to its shape (the reference's ``stack_init``: one leaf per parameter,
     its layers on the leading axis). ``jax.random`` streams cannot be
     reproduced here, so only shapes, dtypes and the scale of each draw
-    match the reference."""
+    match the reference.
+
+    Every draw takes ``axes``, the leaf's logical axes as the reference's
+    ``Builder`` records them. On the builder that ``Init.axes()`` returns,
+    a draw gives those axes, with one ``"layers"`` per stacking prepended
+    (the reference's ``stack_init``), instead of a tensor."""
 
     def __init__(self, generator: Optional[torch.Generator], device,
-                 lead: tuple = ()):
+                 lead: tuple = (), *, axes_only: bool = False):
         self.generator = generator
         self.device = torch.device(device)
         self.lead = tuple(lead)
+        self.axes_only = axes_only
+
+    @classmethod
+    def axes(cls) -> "Init":
+        return cls(None, "meta", axes_only=True)
 
     def stacked(self, n: int) -> "Init":
-        return Init(self.generator, self.device, self.lead + (n,))
+        return Init(self.generator, self.device, self.lead + (n,),
+                    axes_only=self.axes_only)
 
-    def _draw(self, shape, dtype, fill):
+    def _draw(self, shape, dtype, fill, axes):
+        if self.axes_only:
+            if axes is None:
+                raise ValueError("Init.axes(): this draw names no axes")
+            return ("layers",) * len(self.lead) + tuple(axes)
         shape = self.lead + tuple(shape)
         if self.device.type == "meta":
             return torch.empty(shape, dtype=dtype, device="meta")
@@ -66,29 +83,30 @@ class Init:
         return fill(torch.empty(shape, dtype=torch.float32,
                                 device=at)).to(self.device, dtype)
 
-    def dense(self, shape, dtype=torch.float32, scale: float = None):
+    def dense(self, shape, dtype=torch.float32, scale: float = None, *,
+              axes=None):
         """Truncated normal in [-2, 2] times ``scale`` (default 1 /
         sqrt(fan-in), the reference's ``dense_init``)."""
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
         return self._draw(shape, dtype, lambda t: torch.nn.init.trunc_normal_(
-            t, 0.0, 1.0, -2.0, 2.0, generator=self.generator).mul_(std))
+            t, 0.0, 1.0, -2.0, 2.0, generator=self.generator).mul_(std), axes)
 
-    def normal(self, shape, std: float, dtype=torch.float32):
+    def normal(self, shape, std: float, dtype=torch.float32, *, axes=None):
         return self._draw(shape, dtype, lambda t: t.normal_(
-            0.0, 1.0, generator=self.generator).mul_(std))
+            0.0, 1.0, generator=self.generator).mul_(std), axes)
 
-    def zeros(self, shape, dtype=torch.float32):
-        return self._draw(shape, dtype, torch.zero_)
+    def zeros(self, shape, dtype=torch.float32, *, axes=None):
+        return self._draw(shape, dtype, torch.zero_, axes)
 
-    def ones(self, shape, dtype=torch.float32):
-        return self._draw(shape, dtype, lambda t: t.fill_(1.0))
+    def ones(self, shape, dtype=torch.float32, *, axes=None):
+        return self._draw(shape, dtype, lambda t: t.fill_(1.0), axes)
 
-    def const(self, values, dtype=torch.float32):
+    def const(self, values, dtype=torch.float32, *, axes=None):
         """A fixed 1-D ``values`` (host numpy, f32), the same in every
         stacked layer, cast to ``dtype`` as the reference casts it."""
         v = torch.from_numpy(np.asarray(values, dtype=np.float32))
-        return self._draw(v.shape, dtype, lambda t: t.copy_(v))
+        return self._draw(v.shape, dtype, lambda t: t.copy_(v), axes)
 
 
 # ---------------------------------------------------------------------------
@@ -248,18 +266,20 @@ def attn_init(init: Init, cfg, lora_rank: int = 0):
     d = cfg.d_model
     hd, hq, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     dt = dtype_of(cfg.param_dtype)
-    p = {"wq": init.dense((d, hq * hd), dt),
-         "wk": init.dense((d, hkv * hd), dt),
-         "wv": init.dense((d, hkv * hd), dt),
-         "wo": init.dense((hq * hd, d), dt)}
+    p = {"wq": init.dense((d, hq * hd), dt, axes=("embed", "heads")),
+         "wk": init.dense((d, hkv * hd), dt, axes=("embed", "kv_heads")),
+         "wv": init.dense((d, hkv * hd), dt, axes=("embed", "kv_heads")),
+         "wo": init.dense((hq * hd, d), dt, axes=("heads", "embed"))}
     if cfg.qk_norm:
-        p["q_norm"] = init.zeros((hd,), dt)
-        p["k_norm"] = init.zeros((hd,), dt)
+        p["q_norm"] = init.zeros((hd,), dt, axes=("norm",))
+        p["k_norm"] = init.zeros((hd,), dt, axes=("norm",))
     if lora_rank:
         for nm in ("wq", "wk", "wv"):
             out = hq * hd if nm == "wq" else hkv * hd
-            p[f"{nm}_lora_a"] = init.dense((d, lora_rank), dt)
-            p[f"{nm}_lora_b"] = init.zeros((lora_rank, out), dt)
+            p[f"{nm}_lora_a"] = init.dense((d, lora_rank), dt,
+                                           axes=("embed", "norm"))
+            p[f"{nm}_lora_b"] = init.zeros((lora_rank, out), dt,
+                                           axes=("norm", "heads"))
     return p
 
 
@@ -359,9 +379,9 @@ def mlp_init(init: Init, cfg, d_ff: int):
     dt = dtype_of(cfg.param_dtype)
     p = {}
     if not cfg.mlp_gelu:
-        p["w_gate"] = init.dense((d, d_ff), dt)
-    p["w_up"] = init.dense((d, d_ff), dt)
-    p["w_down"] = init.dense((d_ff, d), dt)
+        p["w_gate"] = init.dense((d, d_ff), dt, axes=("embed", "mlp"))
+    p["w_up"] = init.dense((d, d_ff), dt, axes=("embed", "mlp"))
+    p["w_down"] = init.dense((d_ff, d), dt, axes=("mlp", "embed"))
     return p
 
 
@@ -379,10 +399,14 @@ def mlp_apply(p, x):
 def moe_init(init: Init, cfg):
     E, ff, d = cfg.num_experts, cfg.d_ff, cfg.d_model
     dt = dtype_of(cfg.param_dtype)
-    p = {"router": init.dense((d, E), dt, scale=0.02),
-         "w_gate": init.dense((E, d, ff), dt),
-         "w_up": init.dense((E, d, ff), dt),
-         "w_down": init.dense((E, ff, d), dt)}
+    p = {"router": init.dense((d, E), dt, scale=0.02,
+                              axes=("embed", "expert")),
+         "w_gate": init.dense((E, d, ff), dt,
+                              axes=("expert", "expert_in", "mlp")),
+         "w_up": init.dense((E, d, ff), dt,
+                            axes=("expert", "expert_in", "mlp")),
+         "w_down": init.dense((E, ff, d), dt,
+                              axes=("expert", "mlp", "expert_in"))}
     if cfg.num_shared_experts:
         p["shared"] = mlp_init(init, cfg, ff * cfg.num_shared_experts)
     return p
@@ -464,10 +488,11 @@ def embed_init(init: Init, cfg):
     p = {}
     if not cfg.external_embeddings:
         p["embedding"] = init.dense((cfg.vocab_size, cfg.d_model), dt,
-                                    scale=1.0)
+                                    scale=1.0, axes=("vocab", "embed"))
     if not cfg.tie_embeddings:
-        p["lm_head"] = init.dense((cfg.d_model, cfg.vocab_size), dt)
-    p["final_norm"] = init.zeros((cfg.d_model,), dt)
+        p["lm_head"] = init.dense((cfg.d_model, cfg.vocab_size), dt,
+                                  axes=("embed", "vocab"))
+    p["final_norm"] = init.zeros((cfg.d_model,), dt, axes=("norm",))
     return p
 
 

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch import _tree
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import layers as L
 
 
@@ -65,11 +65,11 @@ class TransformerLM:
     def _block_init(self, init: L.Init, kind: str):
         cfg = self.cfg
         dt = L.dtype_of(cfg.param_dtype)
-        p = {"ln1": init.zeros((cfg.d_model,), dt),
-             "ln2": init.zeros((cfg.d_model,), dt)}
+        p = {"ln1": init.zeros((cfg.d_model,), dt, axes=("norm",)),
+             "ln2": init.zeros((cfg.d_model,), dt, axes=("norm",))}
         if kind == "cross":
             p["xattn"] = L.attn_init(init, cfg)
-            p["xgate"] = init.zeros((), dt)
+            p["xgate"] = init.zeros((), dt, axes=())
             p["mlp"] = L.mlp_init(init, cfg, cfg.d_ff_dense or cfg.d_ff)
         else:
             p["attn"] = L.attn_init(init, cfg)
@@ -83,8 +83,18 @@ class TransformerLM:
         """Random params drawn from ``generator`` (on its own device), then
         moved to the model's device; on the ``meta`` device, shapes and
         dtypes only. The reference's ``init`` also returns the logical
-        axes; the port has none."""
-        init = L.Init(generator, self.device)
+        axes; here ``param_axes`` gives them."""
+        return self._init(L.Init(generator, self.device))
+
+    def param_axes(self):
+        """The reference's logical axes tree, key for key."""
+        return self._init(L.Init.axes())
+
+    def param_shapes(self):
+        """The parameter tree as ``meta`` tensors."""
+        return self._init(L.Init(None, "meta"))
+
+    def _init(self, init: L.Init):
         params = {"embed": L.embed_init(init, self.cfg)}
         for si, (kinds, repeat) in enumerate(self.segments):
             layers = init.stacked(repeat)
@@ -186,6 +196,17 @@ class TransformerLM:
             cache[f"seg{si}"] = seg
         return cache
 
+    def cache_axes(self):
+        """The logical axes of ``cache_spec``'s leaves (the second half of
+        the reference's ``cache_spec``)."""
+        kv = ("layers", "batch", "seq_kv", None, None)
+        xkv = ("layers", "batch", None, None, None)
+        return {f"seg{si}": {
+            f"b{bi}_{kind}": ({"xk": xkv, "xv": xkv} if kind == "cross"
+                              else {"k": kv, "v": kv})
+            for bi, kind in enumerate(kinds)}
+            for si, (kinds, _) in enumerate(self.segments)}
+
     def init_cache(self, batch_size: int, max_seq: int):
         return _tree.map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                                device=self.device),
@@ -226,6 +247,44 @@ class TransformerLM:
                         y = L.mlp_apply(p["mlp"], h)
                     x = x + y
         return L.lm_logits(params["embed"], x, cfg), cache
+
+    def input_specs(self, shape: ShapeConfig):
+        return input_specs(self.cfg, shape)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """``meta`` tensors standing in for every model input (the reference's
+    ShapeDtypeStructs) and their logical axes, for any family: the
+    recurrent families read tokens only, as their own ``input_specs`` in
+    the reference do."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    dt = L.dtype_of(cfg.dtype)
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    specs, axes = {}, {}
+    if shape.kind in ("train", "prefill"):
+        if cfg.external_embeddings:
+            specs["embeds"] = spec((b, s, cfg.d_model), dt)
+            axes["embeds"] = ("batch", "seq", None)
+        else:
+            specs["tokens"] = spec((b, s), i32)
+            axes["tokens"] = ("batch", "seq")
+        if cfg.family == "vlm":
+            specs["image_embeds"] = spec((b, cfg.num_image_tokens,
+                                          cfg.d_model), dt)
+            axes["image_embeds"] = ("batch", None, None)
+        if shape.kind == "train":
+            specs["targets"] = spec((b, s), i32)
+            axes["targets"] = ("batch", "seq")
+    else:  # decode
+        specs["tokens"] = spec((b, 1), i32)
+        axes["tokens"] = ("batch", None)
+        specs["pos"] = spec((), i32)
+        axes["pos"] = None
+    return specs, axes
 
 
 def _cross_decode(p, x, xcache, cfg: ModelConfig):

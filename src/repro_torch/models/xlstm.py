@@ -25,7 +25,7 @@ from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import unstacked
+from repro_torch.models.transformer import input_specs, unstacked
 
 # ---------------------------------------------------------------------------
 # mLSTM cell: chunkwise parallel (training) and recurrent (decode)
@@ -71,7 +71,10 @@ def mlstm_chunkwise(q, k, v, i_logit, f_logit, chunk: int):
         # intra-chunk (j <= i): w_ij = exp(a_i - a_j + li_j - m_i)
         wa = a[:, :, None, :] - a[:, None, :, :] + li[:, None, :, :] \
             - m_i[:, :, None, :]  # (b, i, j, H)
-        w = torch.where(mask, torch.exp(wa), 0.0)
+        # masked before the exp: for j > i the exponent can overflow, and
+        # where(mask, exp(wa), 0)'s gradient is then 0 * inf = NaN (the
+        # reference's form, models/xlstm.py:64); the values are the same
+        w = torch.exp(torch.where(mask, wa, -math.inf))
         s = torch.einsum("bihd,bjhd->bijh", qs, ks)
         sw = s * w
         num_intra = torch.einsum("bijh,bjhd->bihd", sw, vs)
@@ -156,15 +159,16 @@ def mlstm_block_init(init: L.Init, cfg: ModelConfig):
     H = cfg.num_heads
     dh = di // H
     dt = L.dtype_of(cfg.param_dtype)
-    return {"ln": init.zeros((d,), dt),
-            "w_up": init.dense((d, 2 * di), dt),
-            "conv": init.dense((4, di), dt),
-            "wq": init.dense((H, dh, dh), dt),
-            "wk": init.dense((H, dh, dh), dt),
-            "w_if": init.dense((di, 2 * H), dt, scale=0.02),
-            "b_if": init.const([0.0] * H + [3.0] * H, dt),
-            "out_norm": init.zeros((di,), dt),
-            "w_down": init.dense((di, d), dt)}
+    return {"ln": init.zeros((d,), dt, axes=("norm",)),
+            "w_up": init.dense((d, 2 * di), dt, axes=("embed", "ssm_inner")),
+            "conv": init.dense((4, di), dt, axes=(None, "ssm_inner")),
+            "wq": init.dense((H, dh, dh), dt, axes=(None, None, None)),
+            "wk": init.dense((H, dh, dh), dt, axes=(None, None, None)),
+            "w_if": init.dense((di, 2 * H), dt, scale=0.02,
+                               axes=("ssm_inner", None)),
+            "b_if": init.const([0.0] * H + [3.0] * H, dt, axes=("norm",)),
+            "out_norm": init.zeros((di,), dt, axes=("norm",)),
+            "w_down": init.dense((di, d), dt, axes=("ssm_inner", "embed"))}
 
 
 def mlstm_block_apply(p, x, cfg: ModelConfig, state=None):
@@ -206,16 +210,18 @@ def slstm_block_init(init: L.Init, cfg: ModelConfig):
     dh = d // H
     dt = L.dtype_of(cfg.param_dtype)
     ffd = int(d * 4 / 3 // 64 * 64)
-    return {"ln": init.zeros((d,), dt),
-            "conv": init.dense((4, d), dt),
-            "w_gates": init.dense((d, 4 * d), dt),
+    return {"ln": init.zeros((d,), dt, axes=("norm",)),
+            "conv": init.dense((4, d), dt, axes=(None, "embed")),
+            "w_gates": init.dense((d, 4 * d), dt,
+                                  axes=("embed", "ssm_inner")),
             "r_gates": init.dense((4, H, dh, dh), dt,
-                                  scale=1.0 / math.sqrt(dh)),
+                                  scale=1.0 / math.sqrt(dh),
+                                  axes=(None, None, None, None)),
             "b_gates": init.const([0.0] * (2 * d) + [3.0] * d + [0.0] * d,
-                                  dt),
-            "out_norm": init.zeros((d,), dt),
+                                  dt, axes=("norm",)),
+            "out_norm": init.zeros((d,), dt, axes=("norm",)),
             "ffn": L.mlp_init(init, cfg, ffd),
-            "ln_ffn": init.zeros((d,), dt)}
+            "ln_ffn": init.zeros((d,), dt, axes=("norm",))}
 
 
 def slstm_block_apply(p, x, cfg: ModelConfig, state=None):
@@ -300,8 +306,18 @@ class XLSTMModel:
         moved to the model's device; on ``meta``, shapes and dtypes only.
         mLSTM leaves are (segments, per segment, ...), sLSTM leaves
         (segments, ...), as the reference stacks them."""
+        return self._init(L.Init(generator, self.device))
+
+    def param_axes(self):
+        """The reference's logical axes tree, key for key."""
+        return self._init(L.Init.axes())
+
+    def param_shapes(self):
+        """The parameter tree as ``meta`` tensors."""
+        return self._init(L.Init(None, "meta"))
+
+    def _init(self, init: L.Init):
         cfg = self.cfg
-        init = L.Init(generator, self.device)
         params = {"embed": L.embed_init(init, cfg),
                   "mlstm": mlstm_block_init(
                       init.stacked(self.n_segments).stacked(
@@ -363,6 +379,26 @@ class XLSTMModel:
                               "h": spec((S, b, H, dhs), dt),
                               "conv": spec((S, b, 3, cfg.d_model), dt)}
         return cache
+
+    def cache_axes(self):
+        """The logical axes of ``cache_spec``'s leaves (the second half of
+        the reference's ``cache_spec``)."""
+        lead = ("layers", "layers", "batch")
+        ax = {"mlstm": {"C": lead + (None, "ssm_inner", None),
+                        "n": lead + (None, "ssm_inner"),
+                        "m": lead + (None,),
+                        "conv": lead + (None, "ssm_inner")}}
+        if self.has_slstm:
+            ax["slstm"] = {"c": ("layers", "batch", None, None),
+                           "n": ("layers", "batch", None, None),
+                           "m": ("layers", "batch", None),
+                           "h": ("layers", "batch", None, None),
+                           "conv": ("layers", "batch", None, "embed")}
+        return ax
+
+    def input_specs(self, shape):
+        """``meta`` stand-ins and logical axes for tokens (and targets)."""
+        return input_specs(self.cfg, shape)
 
     def init_cache(self, batch_size: int, max_seq: int):
         cache = _tree.map(lambda s: torch.zeros(s.shape, dtype=s.dtype,

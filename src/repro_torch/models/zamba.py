@@ -9,6 +9,8 @@ chunks for its scan). ``decode_step`` writes its cache in place.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -17,7 +19,7 @@ from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import unstacked
+from repro_torch.models.transformer import input_specs, unstacked
 from repro_torch.models.xlstm import causal_conv
 
 # ---------------------------------------------------------------------------
@@ -53,9 +55,12 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
             a[:, sl]
         cum = torch.cumsum(ak, dim=1)  # (b,c,H) inclusive
         total = cum[:, -1]  # (b,H)
-        # intra-chunk: L_ij = exp(cum_i - cum_j) for j<=i
+        # intra-chunk: L_ij = exp(cum_i - cum_j) for j<=i. Masked before
+        # the exp: for j > i the exponent is positive and can overflow, and
+        # where(mask, exp(diff), 0)'s gradient is then 0 * inf = NaN (the
+        # reference's form, models/zamba.py:54); the values are the same
         diff = cum[:, :, None, :] - cum[:, None, :, :]  # (b,i,j,H)
-        Lm = torch.where(mask, torch.exp(diff), 0.0)
+        Lm = torch.exp(torch.where(mask, diff, -math.inf))
         CB = torch.einsum("bin,bjn->bij", Ck, Bk)  # (b,i,j)
         W = CB[..., None] * Lm * dtk[:, None, :, :]  # (b,i,j,H)
         y_intra = torch.einsum("bijh,bjhd->bihd", W, xk)
@@ -96,17 +101,21 @@ def mamba_block_init(init: L.Init, cfg: ModelConfig):
     H = di // cfg.ssm_head_dim
     dt = L.dtype_of(cfg.param_dtype)
     f32 = np.float32
-    return {"ln": init.zeros((d,), dt),
+    return {"ln": init.zeros((d,), dt, axes=("norm",)),
             # in_proj -> [z (di), x (di), B (N), C (N), dt (H)]
-            "w_in": init.dense((d, 2 * di + 2 * N + H), dt),
-            "conv": init.dense((4, di + 2 * N), dt),
+            "w_in": init.dense((d, 2 * di + 2 * N + H), dt,
+                               axes=("embed", "ssm_inner")),
+            "conv": init.dense((4, di + 2 * N), dt,
+                               axes=(None, "ssm_inner")),
             "A_log": init.const(np.log(np.linspace(1.0, 16.0, H,
-                                                   dtype=f32))),
-            "D": init.ones((H,)),
+                                                   dtype=f32)),
+                                axes=("norm",)),
+            "D": init.ones((H,), axes=("norm",)),
             "dt_bias": init.const(np.log(np.expm1(np.full((H,), 0.01,
-                                                          f32)))),
-            "out_norm": init.zeros((di,), dt),
-            "w_out": init.dense((di, d), dt)}
+                                                          f32))),
+                                  axes=("norm",)),
+            "out_norm": init.zeros((di,), dt, axes=("norm",)),
+            "w_out": init.dense((di, d), dt, axes=("ssm_inner", "embed"))}
 
 
 def mamba_block_apply(p, x, cfg: ModelConfig, state=None):
@@ -153,11 +162,11 @@ def shared_attn_init(init: L.Init, cfg: ModelConfig):
     per-application LoRA instead."""
     d = cfg.d_model
     dt = L.dtype_of(cfg.param_dtype)
-    return {"ln": init.zeros((2 * d,), dt),
-            "w_in": init.dense((2 * d, d), dt),
+    return {"ln": init.zeros((2 * d,), dt, axes=("norm",)),
+            "w_in": init.dense((2 * d, d), dt, axes=("embed", None)),
             "attn": L.attn_init(init, cfg,
                                 lora_rank=cfg.shared_attn_lora_rank),
-            "ln2": init.zeros((d,), dt),
+            "ln2": init.zeros((d,), dt, axes=("norm",)),
             "mlp": L.mlp_init(init, cfg, cfg.d_ff)}
 
 
@@ -170,8 +179,8 @@ def shared_lora_init(init: L.Init, cfg: ModelConfig):
     dt = L.dtype_of(cfg.param_dtype)
     p = {}
     for nm, out in (("wq", hq * hd), ("wk", hkv * hd), ("wv", hkv * hd)):
-        p[f"{nm}_a"] = init.dense((d, r), dt)
-        p[f"{nm}_b"] = init.zeros((r, out), dt)
+        p[f"{nm}_a"] = init.dense((d, r), dt, axes=("embed", None))
+        p[f"{nm}_b"] = init.zeros((r, out), dt, axes=(None, "heads"))
     return p
 
 
@@ -228,8 +237,18 @@ class ZambaModel:
         moved to the model's device; on ``meta``, shapes and dtypes only.
         Mamba leaves are (n_apps, per_group, ...), as the reference
         stacks them."""
+        return self._init(L.Init(generator, self.device))
+
+    def param_axes(self):
+        """The reference's logical axes tree, key for key."""
+        return self._init(L.Init.axes())
+
+    def param_shapes(self):
+        """The parameter tree as ``meta`` tensors."""
+        return self._init(L.Init(None, "meta"))
+
+    def _init(self, init: L.Init):
         cfg = self.cfg
-        init = L.Init(generator, self.device)
         params = {"embed": L.embed_init(init, cfg),
                   "mamba": mamba_block_init(
                       init.stacked(self.n_apps).stacked(self.per_group), cfg),
@@ -305,6 +324,22 @@ class ZambaModel:
                 "S": spec((self.trailing, b, H, N, dh), f32),
                 "conv": spec((self.trailing, b, 3, di + 2 * N), dtc)}
         return cache
+
+    def cache_axes(self):
+        """The logical axes of ``cache_spec``'s leaves (the second half of
+        the reference's ``cache_spec``)."""
+        state = {"S": ("layers", "batch", "ssm_inner", None, None),
+                 "conv": ("layers", "batch", None, "ssm_inner")}
+        kv = ("layers", "batch", "seq_kv", None, None)
+        ax = {"mamba": {k: ("layers",) + a for k, a in state.items()},
+              "attn_kv": {"k": kv, "v": kv}}
+        if self.trailing:
+            ax["tail"] = state
+        return ax
+
+    def input_specs(self, shape):
+        """``meta`` stand-ins and logical axes for tokens (and targets)."""
+        return input_specs(self.cfg, shape)
 
     def init_cache(self, batch_size: int, max_seq: int):
         return _tree.map(lambda s: torch.zeros(s.shape, dtype=s.dtype,

@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from jax.sharding import AxisType
 
 from repro.configs import smoke_config as jsmoke
 from repro.models import build_model as jbuild
@@ -208,3 +209,28 @@ def reference_serve(jm, jp, prompts, gen):
                          keepdims=True).astype(jnp.int32)
         out.append(np.asarray(tok))
     return np.concatenate(out, axis=1)
+
+
+def auto_mesh(shape, names):
+    """A mesh with ``AxisType.Auto`` axes: the reference's step bundles run
+    jitted with their shardings on it (jax 0.9.0 rejects their
+    ``with_sharding_constraint`` on ``make_smoke_mesh``'s Explicit axes)."""
+    return jax.make_mesh(shape, names,
+                         axis_types=(AxisType.Auto,) * len(shape))
+
+
+def trees_match(got, want, bar=MODEL_RTOL, tree_wide=()):
+    """Each leaf of the port's tree against the reference's at rtol
+    ``bar`` with an atol of ``bar`` times its largest entry; a leaf whose
+    path holds one of ``tree_wide`` with an atol of ``bar`` times the
+    tree's largest entry. Dtypes equal."""
+    gl, wl = _tree.leaves(got), jax.tree.leaves(want)
+    assert len(gl) == len(wl)
+    top = max(float(np.abs(as_f32(w)).max()) for w in wl)
+    for path, g, w in zip(ref_paths(want), gl, wl):
+        assert str(g.dtype) == f"torch.{w.dtype}", (path, g.dtype, w.dtype)
+        w = as_f32(w)
+        wide = any(t in path for t in tree_wide)
+        np.testing.assert_allclose(
+            as_f32(g), w, rtol=bar, err_msg=path,
+            atol=bar * (top if wide else float(np.abs(w).max())))

@@ -124,6 +124,62 @@ def test_ssd_step_matches(rng):
     Z.close(gS, wS, Z.LAYER_RTOL)
 
 
+def _grads_j(fn, args, w):
+    return jax.grad(lambda *a: jnp.sum(fn(*a) * w),
+                    argnums=tuple(range(len(args))))(*args)
+
+
+def _grads_t(fn, args, w):
+    args = [a.clone().requires_grad_(True) for a in args]
+    return torch.autograd.grad(torch.sum(fn(*args) * w), args)
+
+
+# Decays steep enough that exp(cum_i - cum_j) over the masked j > i
+# overflows f32 (exponents of 128 and more). The reference's
+# where(mask, exp(.), 0) then has a gradient of 0 * inf = NaN everywhere
+# (it trained zamba2-1.2b to NaN at full width in 5 steps on the H100);
+# the port masks before the exp, the same values, finite gradients. The
+# gradients are held against the reference's with chunk 1, where no masked
+# entry exists, at rtol 1e-4; a gradient the reference gives as exactly 0
+# (log f = -100: XLA flushes the subnormal products there, ROADMAP C) is
+# held to zero against the largest gradient entry.
+def _steep_ssd(rng, T):
+    x, dt, A, B, C, D = _ssd_inputs(rng, T)
+    return x, np.full_like(dt, 8.0), np.full_like(A, -16.0), B, C, D
+
+
+def _steep_mlstm(rng, T):
+    q, k, v = (rng.normal(size=(2, T, 3, 8)).astype(np.float32)
+               for _ in range(3))
+    i_l = rng.normal(size=(2, T, 3)).astype(np.float32) * 2
+    f_l = np.full((2, T, 3), -100.0, np.float32)  # log f = -100 a step
+    return q, k, v, i_l, f_l
+
+
+@pytest.mark.parametrize("cell", ["ssd_chunked", "mlstm_chunkwise"])
+def test_chunked_scan_gradients_finite_at_steep_decay(cell, rng):
+    T, chunk = 16, 8
+    if cell == "ssd_chunked":
+        args, jfn, tfn = _steep_ssd(rng, T), JZ.ssd_chunked, ZB.ssd_chunked
+    else:
+        args, jfn, tfn = (_steep_mlstm(rng, T), JX.mlstm_chunkwise,
+                          X.mlstm_chunkwise)
+    jargs, targs = _np(*args)
+    w = rng.normal(size=jfn(*jargs, chunk).shape).astype(np.float32)
+    Z.close(tfn(*targs, chunk), jfn(*jargs, chunk), Z.LAYER_RTOL)
+    ref = _grads_j(lambda *a: jfn(*a, chunk), jargs, jnp.asarray(w))
+    assert not all(np.isfinite(np.asarray(g)).all() for g in ref)
+    got = _grads_t(lambda *a: tfn(*a, chunk), targs, torch.from_numpy(w))
+    want = _grads_j(lambda *a: jfn(*a, 1), jargs, jnp.asarray(w))
+    top = max(float(np.abs(np.asarray(wt)).max()) for wt in want)
+    for g, wt in zip(got, want):
+        assert torch.isfinite(g).all()
+        if not np.abs(np.asarray(wt)).max():
+            assert float(g.abs().max()) <= Z.ZERO_BAR * top
+            continue
+        Z.close(g, wt, Z.MODEL_RTOL)
+
+
 # -- the models ---------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", RECURRENT)
