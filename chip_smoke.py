@@ -124,7 +124,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    asserted 0; (c) every arch's smoke config in f32, 3 train steps
    (qwen3-8b's again with 2 microbatches), and a 2-pod int8 FL round of
    qwen3-8b's, card against CPU with cuDNN's deterministic algorithms, at
-   the CPU tests' bars (``tests/test_torch_train.py``).
+   the CPU tests' bars (``tests/test_torch_train.py``); beside the chained
+   steps, each step again on the card from the CPU run's state before it,
+   every leaf at the per-leaf bar but the zero-first-gradient leaves
+   (ROADMAP C4), the worst leaf printed for each step;
+16. the example twins and the dry run: (a) ``examples_torch/``'s
+   ``cross_silo_fl`` (three backends and the fault story), ``quickstart``
+   (qwen3-8b, 40 steps, 8 tokens), ``multipod_fl_train`` (8 rounds),
+   ``serve_lm`` and ``dev_smoke`` (all ten archs) on the card as written,
+   with every launch count at 0 before and read after: one
+   ``fedavg_reduce`` launch per round that aggregated, each held bit for
+   bit against the plain version, the other five kernels 0; (b) the
+   cross-silo twin's grpc+s3 flow for 2 rounds at full width (ResNet56),
+   one tree-form launch a round at phase 3's shape, bit for bit; (c)
+   ``launch/dryrun.run_cell`` on the host for qwen3-8b ``train_4k`` on
+   16x16 and granite-moe ``train_4k``'s int8 FL round on 2x16x16 (run in
+   processes of their own beside (a) and (b)), each record's per-device
+   bytes, FLOPs and H100 roofline terms printed; then phase 15's
+   ``zamba2-1.2b`` step counted the same way, its bound beside the
+   measured step.
 
 The three FedAvg kernels flush subnormals as XLA does on the CPU and sum
 the clients in order, so each is held bit for bit against its plain
@@ -163,6 +181,7 @@ import dataclasses
 import functools
 import json
 import gc
+import importlib.util
 import math
 import os
 import resource
@@ -200,13 +219,16 @@ from repro_torch.kernels import topk as tk  # noqa: E402
 from repro_torch.launch import fl_train, serve  # noqa: E402
 from repro_torch.launch import step_builders as sb  # noqa: E402
 from repro_torch.launch import train as lt  # noqa: E402
-from repro_torch.launch.mesh import make_mesh, make_smoke_mesh  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import (Mesh, make_mesh,  # noqa: E402
+                                     make_smoke_mesh)
 from repro_torch.launch.step_builders import bundle_for  # noqa: E402
 from repro_torch.models import (active_param_count, build_model,  # noqa: E402
                                 param_count)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.bert import BertConfig, DistilBert  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.roofline.analysis import analyze  # noqa: E402
 from repro_torch.models.vision import (MobileNetConfig, MobileNetV3,  # noqa: E402
                                        ResNet, ResNetConfig, ViT, ViTConfig)
 
@@ -2553,11 +2575,21 @@ SMOKE_TRAIN_STEPS = 3
 # largest entry; microbatched steps, whose gradients are cast to bf16, at
 # one bf16 ULP; leaves whose first gradient is exactly zero, so that AdamW
 # steps them next from gradients near its eps, at 1e-4 of the tree's
-# largest: Zamba's LoRA (b starts at 0), and every leaf of the VLM ("" is
-# in every path): its cross-attention starts gated off (xgate 0), AdamW
-# steps it from near-zero gradients at step 2, and from step 3 that noise
-# runs through every layer; card against CPU read 2.003 of the per-leaf
-# bar at seg0/b1_self/attn/wo (the same in two calls)
+# largest: Zamba's LoRA (b starts at 0) and the VLM's cross-attention
+# behind its gate (xgate starts at 0), ONE_STEP_WIDE in the one-step check.
+# The chained 3-step run holds every leaf of the VLM ("" is in every path)
+# at the tree's bar: per leaf it reads 2.0 at seg0/b1_self/attn/wo,
+# inherited from step 1. There one entry's f64 gradient is -2.5e-8,
+# below its leaf's f32 noise (~5.6e-8): the CPU's -1.30e-8 and the card's
+# -7.57e-9 become 0.565 and 0.430 of AdamW's first step, 2.0 of the bar
+# apart (the CPU's own f32 step reads 3.0 against f64's). From a common
+# state every VLM leaf holds per leaf (the one-step check, which holds
+# such entries within the step's lr: 0.024, 0.117 and 0.021 of the bar at
+# steps 1-3 on the H100), so the card's steps are sound.
+ONE_STEP_WIDE = {"zamba2-1.2b": ("lora",), "llama-3.2-vision-11b": ("xattn",)}
+# one step's f32 gradient against the CPU's f64 one, of each leaf's largest
+# entry: the card and the CPU read <= 1.3e-6 on four smoke archs
+GRAD_BAR = 1e-5
 TREE_WIDE = {"zamba2-1.2b": ("lora",), "llama-3.2-vision-11b": ("",)}
 BF16_ULP = 2.0 ** -8
 
@@ -2587,7 +2619,7 @@ def quiet(*_):
     pass
 
 
-def train_arch(arch: str, card: str, device, ckpt_root: str) -> None:
+def train_arch(arch: str, card: str, device, ckpt_root: str) -> float:
     """Phase 15 (a), one arch: ``launch/train.train`` at full width (bf16
     parameters drawn on the card, AdamW with f32 moments, the config's own
     remat) for TRAIN_STEPS steps of the CLI's batch; then the same run
@@ -2685,6 +2717,7 @@ def train_arch(arch: str, card: str, device, ckpt_root: str) -> None:
     profile_step(arch, cfg, shape, tcfg, whole, device)
     del whole
     release()
+    return step_ms
 
 
 def profile_step(arch, cfg, shape, tcfg, run, device) -> None:
@@ -2847,14 +2880,16 @@ def fl_round_path(card: str, device) -> None:
     release()
 
 
-def training_path(card: str, device) -> None:
+def training_path(card: str, device) -> dict:
     """Phase 15 (a) and (b); the six kernels' launch counts set to 0 before
-    and read after, over both, which reach none of them."""
+    and read after, over both, which reach none of them. -> each arch's
+    median ms per step."""
     zero_launches()
     ckpt_root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    step_ms = {}
     try:
         for arch in TRAIN_ARCHS:
-            train_arch(arch, card, device, ckpt_root)
+            step_ms[arch] = train_arch(arch, card, device, ckpt_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     remat_memory(card, device)
@@ -2864,6 +2899,7 @@ def training_path(card: str, device) -> None:
     if any(counts.values()):
         raise AssertionError("the LM training path launched a FedAvg, "
                              "quantize or top-k kernel")
+    return step_ms
 
 
 def smoke_batches(cfg, n: int, b: int, s: int, seed: int):
@@ -2907,15 +2943,129 @@ def leaves_within(got_tree, want_tree, bar: float, wide=()):
     return worst
 
 
+def train_steps(bundle, params, tcfg, batches, device):
+    """``len(batches)`` train steps on ``device`` from ``params`` -> (the
+    state (parameters, optimizer state) before each step and after the
+    last, [(loss, gnorm)])."""
+    p = _tree.map(lambda a: a.to(device), params)
+    o = adamw_init(p, tcfg)
+    states, metrics = [(p, o)], []
+    for step, batch in enumerate(batches):
+        p, o, m = bundle.fn(p, o, {k: v.to(device) for k, v in
+                                   batch.items()}, step)
+        states.append((p, o))
+        metrics.append((float(m["loss"]), float(m["gnorm"])))
+    return states, metrics
+
+
+def state_within(got, want, bar: float, wide=()):
+    """``leaves_within`` over a train state's parameters and both moments."""
+    (gp, go), (wp, wo) = got, want
+    return max(leaves_within(gp, wp, bar, wide),
+               leaves_within(go.m, wo.m, bar, wide),
+               leaves_within(go.v, wo.v, bar, wide))
+
+
+def f64_of(tree):
+    return _tree.map(lambda a: a.double() if a.is_floating_point() else a,
+                     tree)
+
+
+def gradients(cfg, params, batch, device):
+    """The gradient tree of ``cfg``'s model at ``params`` on ``batch``,
+    on ``device``."""
+    model = build_model(cfg, device=device)
+    _, g = sb.value_and_grad(
+        model, _tree.map(lambda a: a.to(device), params),
+        {k: v.to(device) for k, v in batch.items()})
+    return g
+
+
+def grad_within(got, want):
+    """-> (the worst leaf's error against the f64 gradient ``want`` as a
+    share of GRAD_BAR times that leaf's largest entry, its path)."""
+    worst = (0.0, "")
+    for (path, g), (_, w) in zip(_tree_items(got), _tree_items(want)):
+        err = float((g.detach().cpu().double() - w).abs().max())
+        scale = float(w.abs().max())
+        share = err / (GRAD_BAR * scale) if scale else \
+            (0.0 if err == 0 else math.inf)
+        worst = max(worst, (share, "/".join(path)))
+    return worst
+
+
+def params_within(got, want, g64, lr: float, bar: float, wide=()):
+    """``leaves_within`` over parameters, but an entry whose f64 gradient
+    lies within GRAD_BAR of its leaf's largest of zero is held within the
+    step's ``lr`` instead: AdamW's eps-sized denominator turns that
+    gradient's f32 noise into a share of a step, on any two f32 devices.
+    -> (worst share, its path, the entries held so)."""
+    top = max(float(w.float().abs().max()) for _, w in _tree_items(want))
+    worst, held = (0.0, ""), 0
+    for (path, g), (_, w), (_, d) in zip(_tree_items(got), _tree_items(want),
+                                         _tree_items(g64)):
+        path = "/".join(path)
+        diff = (g.detach().cpu().float() - w.float()).abs()
+        near = d.abs() <= GRAD_BAR * float(d.abs().max())
+        held += int(near.sum())
+        if bool((diff[near] > lr).any()):
+            worst = max(worst, (math.inf, path))
+        scale = top if any(x in path for x in wide) else \
+            float(w.float().abs().max())
+        err = float(torch.where(near, 0.0, diff).max())
+        share = err / (bar * scale) if scale else \
+            (0.0 if err == 0 else math.inf)
+        worst = max(worst, (share, path))
+    return worst[0], worst[1], held
+
+
+def one_step_readings(cfg, bundle, states, batches, device, bar: float,
+                      wide=()):
+    """ROADMAP C4's check, from a run's state before each step (``states``,
+    as ``train_steps`` returns them) -> per step:
+
+    - ``grad``: that step's gradient on ``device`` against the CPU's f64
+      gradient, every leaf at GRAD_BAR of its largest entry (``cpu``: the
+      CPU's f32 gradient read the same way, for scale);
+    - ``step``: that one step on ``device`` against the run's own next
+      state: both moments at ``bar`` of each leaf's largest entry
+      (``wide``'s leaves: the tree's), the parameters too except the
+      entries ``params_within`` holds within the step's lr (``held``).
+
+    Each reading is (the worst leaf's share of its bar, its path)."""
+    cfg64 = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
+    out = []
+    for step, batch in enumerate(batches):
+        (p0, o0), (p1, o1) = states[step], states[step + 1]
+        g64 = gradients(cfg64, f64_of(p0), f64_of(batch), "cpu")
+        p, o = (_tree.map(lambda a: a.to(device), t) for t in (p0, o0))
+        p, o, m = bundle.fn(p, o, {k: v.to(device) for k, v in
+                                   batch.items()}, step)
+        share, path, held = params_within(p, p1, g64, float(m["lr"]), bar,
+                                          wide)
+        out.append({
+            "grad": grad_within(gradients(cfg, p0, batch, device), g64),
+            "cpu": grad_within(gradients(cfg, p0, batch, "cpu"), g64),
+            "step": max((share, path), leaves_within(o.m, o1.m, bar, wide),
+                        leaves_within(o.v, o1.v, bar, wide)),
+            "held": held})
+    return out
+
+
 def training_reference_check(device) -> None:
     """Phase 15 (c): every arch's smoke config in f32, SMOKE_TRAIN_STEPS
     train steps (qwen3-8b's again with 2 microbatches), card against CPU
     from the same parameters and batches, with cuDNN's deterministic
     algorithms: parameters and both moments at 1e-4 of each leaf's
     largest entry (the CPU tests' bars, TREE_WIDE and BF16_ULP included),
-    loss and gnorm at 1e-5; then one 2-pod int8 FL round of qwen3-8b's
-    smoke config the same way, the anchor within one int8 level plus 1e-4
-    of each leaf's largest entry."""
+    loss and gnorm at 1e-5. Beside the chained run (one microbatch), each
+    step again on the card from the CPU run's state before it
+    (``one_step_readings``, ROADMAP C4): its gradient against the CPU's
+    f64 one at GRAD_BAR, every leaf; the step against the CPU's at the
+    per-leaf bar, ONE_STEP_WIDE's leaves at the tree's and entries with a
+    gradient within GRAD_BAR of zero within the step's lr. Then one 2-pod int8
+    FL round of qwen3-8b's smoke config the same way, the anchor within
+    one int8 level plus 1e-4 of each leaf's largest entry."""
     shape = ShapeConfig("t", 16, 4, "train")
     runs = [(a, 1) for a in ARCH_ORDER] + [("qwen3-8b", 2)]
     with cudnn_deterministic(True):
@@ -2927,38 +3077,52 @@ def training_reference_check(device) -> None:
             params = build_model(cfg, device="cpu").init(
                 torch.Generator().manual_seed(17))
             batches = smoke_batches(cfg, SMOKE_TRAIN_STEPS, 4, 16, 18)
-            out = []
-            for dev in ("cpu", device):
-                b = bundle_for("train", cfg, shape, make_smoke_mesh(dev),
-                               SMOKE_MESH, tcfg)
-                p = _tree.map(lambda a: a.to(dev), params)
-                o = adamw_init(p, tcfg)
-                metrics = []
-                for step, batch in enumerate(batches):
-                    p, o, m = b.fn(p, o, {k: v.to(dev) for k, v in
-                                          batch.items()}, step)
-                    metrics.append((float(m["loss"]), float(m["gnorm"])))
-                out.append((p, o, metrics))
-            (cp, co, cm), (gp, go, gm) = out
+            cpu_b, card_b = (bundle_for("train", cfg, shape,
+                                        make_smoke_mesh(dev), SMOKE_MESH,
+                                        tcfg) for dev in ("cpu", device))
+            cpu_states, cm = train_steps(cpu_b, params, tcfg, batches, "cpu")
+            card_states, gm = train_steps(card_b, params, tcfg, batches,
+                                          device)
             bar = BF16_ULP if micro > 1 else 1e-4
             wide = TREE_WIDE.get(arch, ())
-            worst, where = max(leaves_within(gp, cp, bar, wide),
-                               leaves_within(go.m, co.m, bar, wide),
-                               leaves_within(go.v, co.v, bar, wide))
+            worst, where = state_within(card_states[-1], cpu_states[-1], bar,
+                                        wide)
             scope = ""
             if wide:
                 scope = f"; {', '.join(wide) or 'every leaf'} of the tree's"
             metric_err = max(abs(g - c) / abs(c) for gs, cs in zip(gm, cm)
                              for g, c in zip(gs, cs))
+            one_wide = ONE_STEP_WIDE.get(arch, ())
+            # one microbatch: the ten archs; a microbatched step casts its
+            # gradients to bf16, whose ULP is up to 2^-7 of a leaf's largest
+            steps = [] if micro > 1 else one_step_readings(
+                cfg, card_b, cpu_states, batches, device, bar, one_wide)
+            one_scope = f"; {', '.join(one_wide)} of the tree's" \
+                if one_wide else ""
             log(f"smoke train {arch} f32, {SMOKE_TRAIN_STEPS} steps"
                 f"{', 2 microbatches' if micro > 1 else ''}, card vs CPU: "
                 f"parameters and moments at {worst:.3e} of the bar ({bar} of "
                 f"each leaf's largest entry{scope}), worst at {where}; loss "
                 f"and gnorm "
                 f"{metric_err:.3e} relative (bar 1e-5)")
+            for k, r in enumerate(steps):
+                log(f"  one step {k + 1} from the CPU's state: gradient, card "
+                    f"vs CPU f64, {r['grad'][0]:.3e} of {GRAD_BAR} of each "
+                    f"leaf's largest at {r['grad'][1]} (the CPU's f32 "
+                    f"{r['cpu'][0]:.3e} at {r['cpu'][1]}); the step, card vs "
+                    f"CPU, {r['step'][0]:.3e} of the bar (each leaf's"
+                    f"{one_scope}) at {r['step'][1]}, {r['held']} entries "
+                    f"with a gradient within {GRAD_BAR} of zero held within "
+                    f"the step's lr")
             if worst > 1.0 or metric_err > 1e-5:
                 raise AssertionError(f"smoke train {arch}: the card disagrees "
                                      "with the CPU")
+            if max((max(r["grad"][0], r["step"][0]) for r in steps),
+                   default=0.0) > 1.0:
+                raise AssertionError(f"smoke train {arch}: one step on the "
+                                     "card from the CPU's state disagrees "
+                                     "with the CPU's step or its gradient "
+                                     "with the f64 one")
         fl_round_reference_check(device)
 
 
@@ -3002,6 +3166,199 @@ def fl_round_reference_check(device) -> None:
         f"each leaf's largest; loss {gl:.6f} / {cl:.6f}")
     if worst > 1.0 or opt_worst > 1.0 or abs(gl - cl) > 1e-5 * abs(cl):
         raise AssertionError("smoke fl_round: the card disagrees with the CPU")
+
+
+# -- phase 16: the example twins and the dry run ---------------------------
+TWINS = ROOT / "examples_torch"
+# the dry run's cells on the card machine's host: a training cell on one
+# pod and the int8 FL round across two
+DRY_CELLS = (("qwen3-8b", "train_4k", False, False, ""),
+             ("granite-moe-1b-a400m", "train_4k", True, True, "int8"))
+DRY_SCRIPT = """
+import json, sys
+from repro_torch.launch import dryrun
+arch, shape, multi, fl, comp = json.loads(sys.argv[1])
+rec = dryrun.run_cell(arch, shape, multi_pod=multi, fl=fl, fl_compress=comp,
+                      out_dir=sys.argv[2], verbose=False)
+print(json.dumps(rec))
+"""
+
+
+def load_twin(name: str):
+    """``examples_torch/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(f"twin_{name}",
+                                                  TWINS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def start_dry_runs(out_dir: str) -> list:
+    """Each DRY_CELLS cell's ``dryrun.run_cell`` in a process of its own on
+    the host (it traces on ``meta`` tensors and launches nothing), started
+    before the twins run on the card."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [(cell, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", DRY_SCRIPT, json.dumps(cell), out_dir],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cell in DRY_CELLS]
+
+
+def held_fedavg(calls: dict, what: str) -> None:
+    """Every recorded FedAvg call held against the plain version: bit for
+    bit, else fail."""
+    err = max((hold_reduce(args, got) for args, got in
+               calls.get("fedavg_reduce", [])), default=0.0)
+    if err != 0.0:
+        raise AssertionError(f"{what}: FedAvg differs from the plain version "
+                             f"by {err:.3e}")
+
+
+def twins_path(device) -> int:
+    """Phase 16 (a): the five twins as written, on the card, with every
+    launch count at 0 before and read after; -> fedavg_reduce's launches,
+    asserted equal to the rounds that aggregated (the other five read 0),
+    each held bit for bit against the plain version."""
+    zero_launches()
+    calls = {}
+    twin = load_twin("cross_silo_fl")
+    with recording(calls):
+        out, fault = twin.run(device)
+    reps = [r for backend in twin.BACKENDS for r in out[backend]]
+    reps += [rep for rep, _ in fault.values()]
+    # a round averages what its quorum counted, an MPI round marked aborted
+    # too (fl/server.py, as the reference's)
+    aggregated = sum(r.n_participants > 0 for r in reps)
+    counts = launches()
+    expect("cross_silo_fl", "fedavg_reduce launches",
+           counts["fedavg_reduce"], aggregated)
+    expect("cross_silo_fl", "recorded FedAvg calls",
+           len(calls.get("fedavg_reduce", [])), aggregated)
+    held_fedavg(calls, "cross_silo_fl")
+    (mpi, _), (s3, _) = fault["mpi_generic"], fault["grpc+s3"]
+    if not mpi.aborted or s3.aborted or s3.n_participants != SILOS - 2:
+        raise AssertionError("cross_silo_fl: the fault story differs")
+    log(f"twin cross_silo_fl: {aggregated} rounds aggregated, each one "
+        f"tree-form fedavg_reduce launch bit for bit its plain version")
+
+    losses, tokens = load_twin("quickstart").run("qwen3-8b", device=device)
+    if not losses[-1] < losses[0] or len(tokens) != 8:
+        raise AssertionError(f"quickstart: losses {losses[0]} -> "
+                             f"{losses[-1]}, tokens {tokens}")
+    log(f"twin quickstart qwen3-8b: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"in {len(losses)} steps; greedy decode {tokens}")
+    for name, argv in (("multipod_fl_train", []), ("serve_lm", []),
+                       ("dev_smoke", [])):
+        t0 = time.perf_counter()
+        if load_twin(name).main(argv + ["--device", str(device)]) != 0:
+            raise AssertionError(f"{name} exited non-zero")
+        log(f"twin {name}: ok in {time.perf_counter() - t0:.3f} s")
+    counts = launches()
+    log(f"phase 16 (a) launches of the six kernels: {counts}")
+    if counts["fedavg_reduce"] != aggregated or any(
+            v for k, v in counts.items() if k != "fedavg_reduce"):
+        raise AssertionError("the twins launched a kernel beyond FedAvg's "
+                             "one a round")
+    return aggregated
+
+
+def cross_silo_full_width(device) -> int:
+    """Phase 16 (b): the cross-silo twin's grpc+s3 flow for ROUNDS rounds
+    at full width (ResNet56), each round's FedAvg one tree-form launch at
+    phase 3's shape, bit for bit its plain version."""
+    twin = load_twin("cross_silo_fl")
+    zero_launches()
+    t0 = time.perf_counter()
+    server, params, store = twin.deploy("grpc+s3", device=device,
+                                        reduced=False)
+    calls = {}
+    with recording(calls):
+        reps, params = twin.train_rounds(server, params, ROUNDS)
+    wall = time.perf_counter() - t0
+    n = sum(l.numel() for l in _tree.leaves(params))
+    expect("cross_silo_fl full width", "parameters", n, MAIN_T)
+    expect("cross_silo_fl full width", "fedavg_reduce launches",
+           launches()["fedavg_reduce"], ROUNDS)
+    shapes = {reduce_shape(args) for args, _ in calls["fedavg_reduce"]}
+    if len(calls["fedavg_reduce"]) != ROUNDS or \
+            shapes != {(MAIN_N, MAIN_T, MAIN_LEAVES)}:
+        raise AssertionError(f"cross_silo_fl full width: FedAvg at {shapes}")
+    held_fedavg(calls, "cross_silo_fl full width")
+    if any(v for k, v in launches().items() if k != "fedavg_reduce"):
+        raise AssertionError("cross_silo_fl full width: a kernel beyond "
+                             "FedAvg launched")
+    log(f"twin cross_silo_fl grpc+s3 full width ({n:,} parameters): "
+        f"{ROUNDS} rounds in {wall:.3f} s wall (deployment included), round "
+        f"{reps[-1].round_time:.4f} s sim, loss {reps[0].losses:.4f} -> "
+        f"{reps[-1].losses:.4f}; FedAvg at (N, T, leaves) "
+        f"{(MAIN_N, MAIN_T, MAIN_LEAVES)}, one launch a round, bit for bit "
+        f"its plain version; store {dict(store.stats)}")
+    return ROUNDS
+
+
+def roofline_line(rl, mem) -> str:
+    return (f"args {mem['argument_bytes']:,} B, outputs "
+            f"{mem['output_bytes']:,} B, temp (estimate) "
+            f"{mem['temp_bytes']:,} B a device; {rl['flops']:.4e} FLOPs a "
+            f"device (model {rl['model_flops']:.4e} in all); compute "
+            f"{rl['t_compute'] * 1e3:.3f} ms, memory "
+            f"{rl['t_memory'] * 1e3:.3f} ms, ICI "
+            f"{rl['t_collective'] * 1e3:.3f} ms, DCN "
+            f"{rl['t_dcn'] * 1e3:.3f} ms -> {rl['dominant']}-bound")
+
+
+def dry_run_path(procs, step_ms: dict) -> None:
+    """Phase 16 (c): the dry-run cells' records, then phase 15's
+    ``zamba2-1.2b`` step counted the same way, its bound beside the step
+    phase 15 measured (not a gate: that step is host-bound)."""
+    for cell, t0, proc in procs:
+        out, err = proc.communicate(timeout=900)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run {cell}: {err[-2000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {cell}: {rec.get('error')}")
+        line = roofline_line(rec["roofline"], rec["memory_analysis"])
+        log(f"dry run {rec['arch']} {rec['shape']}"
+            f"{' fl ' + rec['fl_compress'] if rec['fl'] else ''} "
+            f"@{rec['mesh']}: {line}; {rec['compile_s']} s to build and "
+            f"count ({secs:.1f} s wall); DCN "
+            f"{rec['roofline']['coll_dcn_bytes']:,.0f} B a device")
+    arch = "zamba2-1.2b"
+    cfg = get_config(arch)
+    shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = train_config(TRAIN_STEPS)
+    mesh = Mesh(SMOKE_MESH.axis_names, SMOKE_MESH.shape, torch.device("meta"))
+    t0 = time.perf_counter()
+    bundle = bundle_for("train", cfg, shape, mesh, SMOKE_MESH, tcfg)
+    c = dryrun.count(bundle, "train", cfg, shape, SMOKE_MESH, tcfg)
+    rl = analyze(flops=c["flops"], memory=c["memory"],
+                 collectives=c["collectives"], arch=arch, shape=shape,
+                 kind="train", mesh_name="1x1", chips=1, cfg=cfg).to_dict()
+    bound_ms = rl["bound_time"] * 1e3
+    log(f"roofline of phase 15's {arch} step ({TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"bf16, 1x1, H100 SXM data sheet): {roofline_line(rl, c['memory'])}; "
+        f"bound {bound_ms:.3f} ms against the measured {step_ms[arch]:.3f} ms "
+        f"median step ({bound_ms / step_ms[arch]:.4f} of it; counted in "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+def examples_path(device, step_ms: dict) -> int:
+    """Phase 16; -> its fedavg_reduce launches, each held bit for bit."""
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
+    procs = start_dry_runs(out_dir)
+    try:
+        n = twins_path(device)
+        n += cross_silo_full_width(device)
+        dry_run_path(procs, step_ms)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return n
 
 
 def main() -> int:
@@ -3070,18 +3427,21 @@ def main() -> int:
     serving_path(card, device)
     serving_reference_check(device)
     phase_done("14 (the LM zoo's serving path)")
-    training_path(card, device)
+    step_ms = training_path(card, device)
     training_reference_check(device)
     phase_done("15 (the LM zoo's training path)")
+    twin_launches = examples_path(device, step_ms)
+    phase_done("16 (the example twins and the dry run)")
 
     # launches: over the main paths each kernel is on, each path run with
-    # the counts at 0 (fedavg_reduce: the sync rounds, the event runs and
-    # the Large tier's two runs; the quantize pair: the event runs, the
-    # Large fedbuff run and vertical run (a); topk_rows: the event runs
+    # the counts at 0 (fedavg_reduce: the sync rounds, the event runs, the
+    # Large tier's two runs and the cross-silo twin's rounds; the quantize
+    # pair: the event runs, the Large fedbuff run and vertical run (a);
+    # topk_rows: the event runs
     # and vertical run (b); fedavg_reduce_q8: the fedavg_quantized phase)
     path_launches = {k: event_launches[k] + large_launches[k]
                      + vertical_launches[k] for k in KERNELS}
-    path_launches["fedavg_reduce"] += sync_launches
+    path_launches["fedavg_reduce"] += sync_launches + twin_launches
     path_launches["fedavg_reduce_q8"] += q8_launches
     sources = {"fedavg_reduce": ("fedavg_reduce.cu", "fedavg_reduce.py:42"),
                "fedavg_accumulate": ("fedavg_reduce.cu",

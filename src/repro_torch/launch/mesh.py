@@ -1,9 +1,10 @@
 """Port of ``src/repro/launch/mesh.py``: mesh construction.
 
 In place of ``jax.make_mesh`` a mesh here is a small record (axis names,
-shape, device). The port runs on one device, so only a mesh of one device
-can be made; the production meshes (256 and 512 devices) serve the
-reference's dry run, which the port does not have yet.
+shape, device). The port runs on one device, so ``make_mesh`` makes only a
+mesh of one device. The production meshes (256 and 512 devices) are
+abstract: ``make_production_mesh`` places them on ``meta``, where nothing
+computes a value, for the dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,14 @@ class Mesh:
     axis_names: tuple
     shape: tuple
     device: torch.device
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The target deployment mesh on ``meta``: 16x16 (256 devices) or
+    2x16x16 (two pods, 512 devices, the 'pod' axis across pods)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(axes, shape, torch.device("meta"))
 
 
 def make_mesh(cfg: MeshConfig, device=None) -> Mesh:

@@ -13,6 +13,9 @@ The port runs on one device. ``Sharder`` and ``constrain`` are the
 identity on a mesh whose axes all have size 1 (as the reference's are on
 one device) and raise ``NotImplementedError`` on a larger one: sharding
 across cards is ROADMAP item 16's open part, not something to pretend.
+``Sharder`` is also the identity on a mesh on ``meta`` of any size
+(``launch/mesh.make_production_mesh``): such a mesh is abstract, and
+nothing on it computes a value.
 """
 from __future__ import annotations
 
@@ -171,9 +174,10 @@ def bytes_of(tree) -> int:
 class Sharder:
     """Callable applying logical-axis sharding constraints.
 
-    ``Sharder(None)``, and a ``Sharder`` on a mesh whose axes all have size
-    1, are the identity: the same model code runs unsharded. On a larger
-    mesh it raises ``NotImplementedError``.
+    ``Sharder(None)``, a ``Sharder`` on a mesh whose axes all have size 1,
+    and one on a ``meta`` mesh are the identity: the same model code runs
+    unsharded. On a larger mesh of a real device it raises
+    ``NotImplementedError``.
     """
 
     def __init__(self, plan: Optional[MeshPlan] = None, mesh=None):
@@ -183,6 +187,6 @@ class Sharder:
     def __call__(self, x, axes):
         if self.plan is None or self.mesh is None:
             return x
-        if math.prod(self.mesh.shape) != 1:
+        if math.prod(self.mesh.shape) != 1 and str(self.mesh.device) != "meta":
             raise NotImplementedError(MULTI_DEVICE)
         return x

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing in ``src/repro_torch/`` or
-``chip_smoke.py`` imports JAX or the JAX package ``repro``.
+"""The port stands alone: nothing in ``src/repro_torch/``,
+``examples_torch/`` or ``chip_smoke.py`` imports JAX or the JAX package
+``repro``.
 
 Two checks: an AST walk of every source file for ``import jax`` /
 ``jaxlib`` / ``repro`` (absolute imports of ``repro_torch`` are fine),
@@ -22,7 +23,8 @@ from repro_torch.configs.paper_tiers import TIER_ORDER, build_tier_model
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TWINS = sorted((ROOT / "examples_torch").glob("*.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + TWINS + [ROOT / "chip_smoke.py"]
 
 
 def forbidden_imports(path: Path):
@@ -57,8 +59,8 @@ def test_lint_catches_forbidden_imports(tmp_path):
 
 
 def test_port_imports_with_jax_blocked():
-    """Every port module and chip_smoke.py import in an interpreter where
-    ``import jax`` / ``import repro`` raise ImportError."""
+    """Every port module, the example twins and chip_smoke.py import in an
+    interpreter where ``import jax`` / ``import repro`` raise ImportError."""
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__") for p in PORT.rglob("*.py"))
@@ -67,6 +69,10 @@ def test_port_imports_with_jax_blocked():
             "    sys.modules[name] = None\n"
             f"for m in {modules!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
+            "import importlib.util\n"
+            f"for path in {[str(p) for p in TWINS]!r}:\n"
+            "    spec = importlib.util.spec_from_file_location('twin', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "assert 'repro_torch.launch.fl_train' in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))

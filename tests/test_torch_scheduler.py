@@ -192,6 +192,71 @@ def test_virtual_runs_trace_identical(case):
         assert tsched._acc is not None
 
 
+# the repo's scenario files, as written: each names a fault it exercises
+SCENARIO_DIR = Path(__file__).resolve().parents[1] / "examples" / "scenarios"
+SCENARIO_FILES = {
+    "cross_cloud_100.json": "store_retries",
+    "multi_hub_faults.json": "retransmits",
+    "wan_outage_replay.json": "blackout_departures",
+}
+
+
+def _run_scenario_file(pkg, runners, path, overrides=None):
+    """``runners.run_scenario``'s event-driven path on the file's scenario
+    (with ``overrides``), keeping the scheduler, the fabric and the store
+    for their logs."""
+    sc = pkg["scn"].Scenario.load(str(path))
+    if overrides:
+        sc = pkg["scn"].with_overrides(sc, overrides)
+    rt = pkg["scn"].build_runtime(sc)
+    tier = runners.TIERS[sc.fleet.tier]
+    clients = runners.make_clients(rt, compression=sc.channel.compression)
+    strategy = pkg["fl"].make_strategy(sc.fl_config(),
+                                       sc.topology.num_clients)
+    avail = pkg["fault"].make_availability(
+        sc.faults.availability_trace, [c.client_id for c in clients],
+        horizon_s=sc.faults.trace_horizon_s, seed=sc.seed)
+    sched = pkg["fl"].FLScheduler(
+        rt.make_backend("server", compression="none"), clients, strategy,
+        local_steps=sc.fleet.local_steps, availability=avail,
+        cohort_k=sc.fleet.cohort_k, cohort_seed=sc.seed,
+        streaming_hub=sc.strategy.streaming_hub)
+    rep = sched.run(pkg["core"].VirtualPayload(tier.payload_bytes,
+                                               tag="sweep"),
+                    max_aggregations=sc.strategy.rounds)
+    return sc, rep, sched, rt
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIO_FILES))
+def test_scenario_file_virtual_run_trace_identical(name):
+    import repro.sweep.runners as jrunners
+    import repro_torch.sweep.runners as trunners
+    (sc, jrep, jsched, jrt), (_, trep, tsched, trt) = (
+        _run_scenario_file(pkg, runners, SCENARIO_DIR / name)
+        for pkg, runners in ((JAX_PKG, jrunners), (PORT_PKG, trunners)))
+    assert sc.strategy.mode in ("fedbuff", "hier")
+    assert trep.n_aggregations == jrep.n_aggregations == sc.strategy.rounds
+    assert tsched.loop.trace == jsched.loop.trace
+    assert dataclasses.asdict(trep) == dataclasses.asdict(jrep)
+    assert [dataclasses.asdict(e) for e in tsched.agg_log] == \
+        [dataclasses.asdict(e) for e in jsched.agg_log]
+    assert tsched.update_log == jsched.update_log
+    assert dict(trt.fabric.stats) == dict(jrt.fabric.stats)
+    assert trunners.wire_stats(trt.fabric, trt.store) == \
+        jrunners.wire_stats(jrt.fabric, jrt.store)
+    # the case really exercised what it names; a blackout shifts
+    # departures past its window, so without the file the trace differs
+    what = SCENARIO_FILES[name]
+    if what == "blackout_departures":
+        _, _, plain, _ = _run_scenario_file(
+            PORT_PKG, trunners, SCENARIO_DIR / name,
+            {"faults.blackouts_file": ""})
+        assert plain.loop.trace != tsched.loop.trace
+    else:
+        assert {"store_retries": trt.store.stats["retries"],
+                "retransmits": trt.fabric.stats["retransmits"]}[what] > 0
+
+
 # ---------------------------------------------------------------------------
 # live runs
 # ---------------------------------------------------------------------------
