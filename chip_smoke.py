@@ -142,7 +142,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    processes of their own beside (a) and (b)), each record's per-device
    bytes, FLOPs and H100 roofline terms printed; then phase 15's
    ``zamba2-1.2b`` step counted the same way, its bound beside the
-   measured step.
+   measured step;
+17. the multi-device path, over a process group of one rank a card
+   (NCCL): at world size 1 (one card) (a) granite-moe's full-width int8
+   FL round from one state, stacked as phase 15 (b) runs it and through
+   the distributed exchange (both pods on the rank: an NCCL all-reduce
+   of each leaf's max, an all-gather of its int8 levels), anchor, pods,
+   moments, counts and loss bit for bit; (b) a full-width train step
+   through a (1, 1) ``DeviceMesh`` bit for bit the one-device step from
+   the same state; (c) the distributed checkpoint save of its parameters
+   byte for byte the one-device save (the manifest and every npz
+   member); world size, backend, ms, collectives and their bytes, the
+   exchange's int8 against f32 bytes and peak memory printed; with 2 or
+   more cards, granite-moe's smoke round with the pods on separate ranks
+   against the stacked round; the six kernels' launch counts asserted 0.
 
 The three FedAvg kernels flush subnormals as XLA does on the CPU and sum
 the clients in order, so each is held bit for bit against its plain
@@ -158,7 +171,9 @@ quantize pair's bytes), and times the host-side flat wrappers around
 them on one ResNet56 update; then ``topk_rows`` (edge
 shapes with ties and signed zeros, k over many sort tiles, k = T,
 all-equal rows of 1,000,000, then one MobileNetV3 and one ResNet56
-update at ``topk:0.05``, each broken down by kernel) and
+update at ``topk:0.05``, each broken down by kernel, and one ViT-Large
+update, 303,236,096 entries at k = 15,161,804, timed cold and from a
+graph beside ``torch.topk(x.abs(), k)``) and
 ``fedavg_reduce_q8`` (edge shapes on both of its paths, then 5 ResNet56
 updates), and the top-k
 codec's host work on one MobileNetV3 update. Phase 7 also runs the repo's
@@ -200,7 +215,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import _tree  # noqa: E402
+from repro_torch import _dist, _tree  # noqa: E402
+from repro_torch.checkpoint import save_checkpoint  # noqa: E402
 from repro_torch.compression.stages import QsgdCodec, TopkCodec  # noqa: E402
 from repro_torch.configs import ARCH_ORDER, get_config, smoke_config  # noqa: E402
 from repro_torch.configs.base import (MULTI_POD_MESH, SMOKE_MESH,  # noqa: E402
@@ -229,6 +245,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.bert import BertConfig, DistilBert  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.roofline.analysis import analyze  # noqa: E402
+from repro_torch.sharding.rules import local  # noqa: E402
 from repro_torch.models.vision import (MobileNetConfig, MobileNetV3,  # noqa: E402
                                        ResNet, ResNetConfig, ViT, ViTConfig)
 
@@ -1094,6 +1111,26 @@ def last_kernels_phase(card: str) -> dict:
                                 "ms": kernel_ms, "plain_ms": plain_ms,
                                 "bound_ms": bound_ms, "bound_by": bound_by,
                                 "library_ms": library_ms}
+
+    # one Large (ViT-Large) update at topk:0.05, timed beside its bound
+    t, k = LARGE_T, topk_k(LARGE_T)
+    x = torch.randn((1, t), generator=g, device="cuda") * 1e-2
+    err = hold_topk(x, k, tk.topk_rows(x, k))
+    rec["topk_rows"]["max_abs_err"] = max(rec["topk_rows"]["max_abs_err"],
+                                          err)
+    nbytes = 4 * t + 8 * k
+    bound_ms, bound_by = bound(nbytes, 0, card)
+    kernel_ms = time_cold(lambda: tk.topk_rows(x, k), reps=5)
+    graph_ms = time_graph(lambda: tk.topk_rows(x, k), reps=3, replays=3)
+    plain_ms = time_cold(lambda: tk.topk_rows_plain(x, k), reps=3)
+    library_ms = time_cold(lambda: torch.topk(x.abs(), k), reps=3)
+    log(f"topk_rows (1, {t}) k={k} (a Large update): idx and vals bit-exact "
+        f"(vals as int32 views); kernel_ms={kernel_ms:.6f} graph-replayed "
+        f"{graph_ms:.6f} ms; plain_ms={plain_ms:.6f} "
+        f"library_ms={library_ms:.6f} (torch.topk(x.abs(), k)) "
+        f"bound_ms={bound_ms:.6f} ({nbytes} bytes, {bound_by}; {card})")
+    del x
+    release()
 
     q = torch.randint(-127, 128, (Q8_N, Q8_T), generator=g, device="cuda",
                       dtype=torch.int8)
@@ -3361,6 +3398,334 @@ def examples_path(device, step_ms: dict) -> int:
     return n
 
 
+# -- phase 17: the multi-device path ----------------------------------------
+# granite-moe at full width, as phase 15 (b) and (a) run it, through a
+# process group over NCCL: at world size 1 (a machine with one card) each
+# result is held bit for bit against the one-device code from the same
+# state; with 2 or more cards the pods also run on separate ranks
+DIST_ARCH = FL_ARCH
+# one rank of the cross-card round: FL_ARCH's smoke config in f32, one
+# int8 round on a (2, 1, world / 2) mesh; rank 0 writes the gathered anchor
+RANK_SCRIPT = """
+import dataclasses, json, sys
+import torch
+from repro_torch import _dist, _tree
+from repro_torch.configs import smoke_config
+from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+from repro_torch.data import lm_batch_iterator
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.step_builders import bundle_for, stack_pods
+from repro_torch.optim import adamw_init
+from repro_torch.sharding import gather_tree
+arch, rank, world, init, out, dev, local = json.loads(sys.argv[1])
+cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
+                          param_dtype="float32")
+_dist.init(dev, rank=rank, world_size=world, init_file=init)
+names = ("pod", "data", "model")
+shape3 = (2, 1, world // 2)
+tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=5, total_steps=4,
+                   crosspod_compression="int8")
+b = bundle_for("fl_round", cfg, ShapeConfig("fl", 32, 8, "train"),
+               make_mesh(MeshConfig(shape3, names), dev),
+               MeshConfig(shape3, names), tcfg, local_steps=local)
+params = b.model.init(torch.Generator().manual_seed(17))
+it = lm_batch_iterator(17, 4, 32, cfg.vocab_size)
+per = [[next(it) for _ in range(local)] for _ in range(2)]
+batches = {k: torch.stack([torch.stack([torch.from_numpy(per[i][j][k])
+                                        for j in range(local)])
+                           for i in range(2)]) for k in per[0][0]}
+stacked, opt = stack_pods(params, 2), stack_pods(adamw_init(params, tcfg), 2)
+_, _, anchor, loss = b.fn(stacked, opt, params, batches, 0)
+anchor = gather_tree(anchor)
+if rank == 0:
+    torch.save({"anchor": [l.cpu() for l in _tree.leaves(anchor)],
+                "loss": float(loss)}, out)
+_dist.shutdown()
+"""
+
+
+@contextlib.contextmanager
+def recording_collectives(log: list):
+    """``torch.distributed``'s all_reduce and all_gather, each call noted
+    as (name, dtype, payload bytes a rank sends)."""
+    import torch.distributed as dist
+    orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def wrap(name):
+        def call(*args, **kw):
+            t = args[1] if name == "all_gather" else args[0]
+            log.append((name, str(t.dtype), t.numel() * t.element_size()))
+            return orig[name](*args, **kw)
+        return call
+
+    for n in orig:
+        setattr(dist, n, wrap(n))
+    try:
+        yield
+    finally:
+        for n, f in orig.items():
+            setattr(dist, n, f)
+
+
+def collective_note(log: list) -> str:
+    by = {}
+    for name, dtype, nbytes in log:
+        c, b = by.get((name, dtype), (0, 0))
+        by[(name, dtype)] = (c + 1, b + nbytes)
+    return "; ".join(f"{n} {d}: {c} calls, {b:,} B" for (n, d), (c, b)
+                     in sorted(by.items())) or "none"
+
+
+def checkpoint_bytes(step_dir: Path) -> tuple:
+    """The manifest's bytes and each npz member's (name, bytes), in order:
+    the zip headers also hold the write time."""
+    import zipfile
+    with zipfile.ZipFile(step_dir / "arrays.npz") as z:
+        members = [(n, z.read(n)) for n in z.namelist()]
+    return (step_dir / "manifest.json").read_bytes(), members
+
+
+def dist_fl_round(card: str, device, bundles: dict) -> None:
+    """Phase 17 (a): phase 15 (b)'s full-width int8 round from one state,
+    once stacked on the card and once through the distributed exchange
+    (both pods on this rank; NCCL's all_reduce of each leaf's max and
+    all-gather of its int8 levels): bit for bit the same."""
+    import torch.distributed as dist
+    cfg = get_config(DIST_ARCH)
+    model = bundles["stacked"].model
+    fresh_peak()
+    anchor = model.init(torch.Generator(device=device).manual_seed(15))
+    data = lm_batch_iterator(15, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    per = [[next(data) for _ in range(FL_LOCAL)] for _ in range(FL_PODS)]
+    batches = {k: torch.stack([torch.stack(
+        [torch.from_numpy(per[i][j][k]) for j in range(FL_LOCAL)])
+        for i in range(FL_PODS)]).to(device) for k in per[0][0]}
+    n = sum(l.numel() for l in _tree.leaves(anchor))
+    want = None
+    for name in ("stacked", "distributed"):
+        fn = bundles[name].fn
+        stacked = sb.stack_pods(anchor, FL_PODS)
+        opt = sb.stack_pods(adamw_init(anchor, TrainConfig()), FL_PODS)
+        torch.cuda.reset_peak_memory_stats()
+        calls, ex_calls = [], []
+        with deterministic_algorithms():
+            with recording_collectives(calls):
+                synchronize()
+                t0 = time.perf_counter()
+                stacked, opt, loss = fn.local_steps(stacked, opt, batches, 0)
+                synchronize()
+            t1 = time.perf_counter()
+            with recording_collectives(ex_calls):
+                stacked, new_anchor = fn.exchange(anchor, stacked)
+                synchronize()
+            t2 = time.perf_counter()
+        na = [local(l) for l in _tree.leaves(new_anchor)]
+        pods = [local(l) for l in _tree.leaves(stacked)]
+        if not all(torch.equal(p[i], a) for p, a in zip(pods, na)
+                   for i in range(p.shape[0])):
+            raise AssertionError(f"phase 17 (a) {name}: a pod differs from "
+                                 "the new anchor")
+        moments = [local(l) for l in _tree.leaves((opt.m, opt.v))]
+        log(f"phase 17 (a) {DIST_ARCH} int8 round, {name}"
+            + (f" (world size {dist.get_world_size()}, "
+               f"{dist.get_backend()})" if name == "distributed" else "")
+            + f": {FL_PODS} pods x {FL_LOCAL} local steps "
+            f"{(t1 - t0) * 1e3:.3f} ms, exchange {(t2 - t1) * 1e3:.3f} ms, "
+            f"{(t2 - t0) * 1e3:.3f} ms the round; loss {float(loss):.6f}; "
+            f"collectives: local steps {collective_note(calls)}, exchange "
+            f"{collective_note(ex_calls)}; the pod all-gather "
+            f"carries {FL_PODS * n:,} B of int8 levels (f32 deltas: "
+            f"{4 * FL_PODS * n:,} B); {memory_note()} ({card})")
+        if name == "stacked":
+            want = ([a.cpu() for a in na], [m.cpu() for m in moments],
+                    float(loss), local(opt.count).tolist())
+        else:
+            got = (na, moments, float(loss), local(opt.count).tolist())
+            gathers = [c for c in ex_calls if c[0] == "all_gather"]
+            if not gathers or any(c[1] != "torch.int8" for c in gathers):
+                raise AssertionError(f"phase 17 (a): the exchange gathered "
+                                     f"{gathers[:3]}, not int8 levels")
+            same = all(bits_equal(g, w.to(device)) for g, w in
+                       zip(got[0] + got[1], want[0] + want[1]))
+            if not (same and got[2:] == want[2:]):
+                raise AssertionError("phase 17 (a): the distributed round "
+                                     "differs from the stacked one")
+            log(f"phase 17 (a): the distributed round's anchor, pods, "
+                f"moments, counts and loss bit for bit the stacked round's")
+        del stacked, opt, new_anchor, na, pods, moments
+        release()
+    del anchor, want, got, batches
+    release()
+
+
+def dist_train_step(card: str, device, ckpt_root: str) -> None:
+    """Phase 17 (b), (c): phase 15 (a)'s full-width train step from one
+    state, on the one-device mesh and through a (1, 1) DeviceMesh, bit for
+    bit; then the parameters saved by the distributed save (gathered,
+    written by rank 0) and by the one-device save, byte for byte."""
+    cfg = get_config(DIST_ARCH)
+    shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = train_config(TRAIN_STEPS)
+    one = Mesh(SMOKE_MESH.axis_names, SMOKE_MESH.shape, device)
+    mesh = make_mesh(SMOKE_MESH, device.type)
+    plain = bundle_for("train", cfg, shape, one, SMOKE_MESH, tcfg)
+    dist_b = bundle_for("train", cfg, shape, mesh, SMOKE_MESH, tcfg)
+    fresh_peak()
+    params = plain.model.init(torch.Generator(device=device).manual_seed(15))
+    opt = adamw_init(params, tcfg)
+    batch = lt.lm_batch(cfg, next(lm_batch_iterator(
+        0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)), 0, device)
+    out, ms = {}, {}
+    for name, b in (("one-device", plain), ("distributed", dist_b)):
+        calls = []
+        with deterministic_algorithms(), recording_collectives(calls):
+            synchronize()
+            t0 = time.perf_counter()
+            out[name] = b.fn(params, opt, batch, 0)
+            synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        log(f"phase 17 (b) {DIST_ARCH} train step, {name}: "
+            f"{ms[name]:.3f} ms (step 0: autograd's first pass included), "
+            f"loss {float(out[name][2]['loss']):.6f}, gnorm "
+            f"{float(out[name][2]['gnorm']):.6f}; collectives: "
+            f"{collective_note(calls)}; {memory_note()} ({card})")
+    (p1, o1, m1), (p2, o2, m2) = out["one-device"], out["distributed"]
+    same = all(bits_equal(local(b), a) for a, b in zip(
+        _tree.leaves((p1, o1)), _tree.leaves((p2, o2))))
+    same &= all(bits_equal(m2[k], m1[k]) for k in ("loss", "gnorm", "lr"))
+    if not same:
+        raise AssertionError("phase 17 (b): the step through the DeviceMesh "
+                             "differs from the one-device step")
+    log("phase 17 (b): parameters, moments, count, loss, gnorm and lr bit "
+        "for bit the one-device step's")
+    del params, opt, o1, o2, out
+    release()
+    secs = {}
+    for name, tree in (("one-device", p1), ("distributed", p2)):
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(ckpt_root, name), 1, tree)
+        secs[name] = time.perf_counter() - t0
+    a, b = (checkpoint_bytes(Path(ckpt_root) / name / "step_000000001")
+            for name in ("one-device", "distributed"))
+    nbytes = sum(len(m) for _, m in a[1])
+    if a != b:
+        raise AssertionError("phase 17 (c): the distributed save differs "
+                             "from the one-device save")
+    log(f"phase 17 (c): the distributed save of {DIST_ARCH}'s parameters "
+        f"({nbytes:,} B of npz members) byte for byte the one-device save "
+        f"(manifest and every member); {secs['distributed']:.3f} s against "
+        f"{secs['one-device']:.3f} s")
+    del p1, p2
+    release()
+
+
+def pods_across_cards(card: str, n_cards: int, device) -> None:
+    """Phase 17 with 2 or more cards: FL_ARCH's smoke round with the 2 pods
+    on separate ranks, one process a card, over NCCL; its anchor held
+    against the round stacked on card 0 from the same state, at the CPU
+    tests' bar (one int8 level plus 1e-4 of each leaf's largest entry)."""
+    world = n_cards - n_cards % 2
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ranks-")
+    try:
+        out = os.path.join(tmp, "anchor.pt")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RANK_SCRIPT, json.dumps(
+                [DIST_ARCH, r, world, os.path.join(tmp, "init"), out,
+                 device.type, FL_LOCAL])],
+            env=dict(env, LOCAL_RANK=str(r))) for r in range(world)]
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(rcs):
+            raise AssertionError(f"phase 17: the {world} ranks exited {rcs}")
+        got = torch.load(out)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = dataclasses.replace(smoke_config(DIST_ARCH), dtype="float32",
+                              param_dtype="float32")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=5, total_steps=4,
+                       crosspod_compression="int8")
+    b = bundle_for("fl_round", cfg, ShapeConfig("fl", 32, 8, "train"),
+                   Mesh(POD_AXES, (1, 1, 1), device),
+                   MeshConfig((2, 1, world // 2), POD_AXES), tcfg,
+                   local_steps=FL_LOCAL)
+    params = b.model.init(torch.Generator().manual_seed(17))
+    it = lm_batch_iterator(17, 4, 32, cfg.vocab_size)
+    per = [[next(it) for _ in range(FL_LOCAL)] for _ in range(2)]
+    batches = {k: torch.stack([torch.stack(
+        [torch.from_numpy(per[i][j][k]) for j in range(FL_LOCAL)])
+        for i in range(2)]).to(device) for k in per[0][0]}
+    stacked = sb.stack_pods(params, 2)
+    opt = sb.stack_pods(adamw_init(params, tcfg), 2)
+    stacked, opt, loss = b.fn.local_steps(stacked, opt, batches, 0)
+    pre = _tree.leaves(stacked)
+    _, anchor = b.fn.exchange(params, stacked)
+    worst = 0.0
+    for a0, p, want, g in zip(_tree.leaves(params), pre,
+                              _tree.leaves(anchor), got["anchor"]):
+        level = float((p.float() - a0.float()[None]).abs().max()) / 127
+        err = float((g.to(device) - want).abs().max())
+        bar = level + 1e-4 * float(want.abs().max())
+        worst = max(worst, err / bar if bar else err)
+        if err > bar:
+            raise AssertionError(f"phase 17 across {world} cards: anchor "
+                                 f"{err:.3e} from the stacked round's, bar "
+                                 f"{bar:.3e}")
+    log(f"phase 17 across {world} cards ({card}): {DIST_ARCH} smoke int8 "
+        f"round, pods on separate ranks over {_dist.backend_for(device)}, "
+        f"{wall:.3f} s wall with "
+        f"the ranks' start; loss {got['loss']:.6f} (stacked "
+        f"{float(loss):.6f}); anchor within {worst:.3f} of the bar of the "
+        f"stacked round's")
+
+
+def multi_device_path(card: str, device) -> None:
+    """Phase 17: a process group of one rank over NCCL on this card for
+    (a)-(c); then, with 2 or more cards, the pods across cards."""
+    import torch.distributed as dist
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    cfg = get_config(DIST_ARCH)
+    shape = ShapeConfig("fl", TRAIN_SEQ, TRAIN_BATCH * FL_PODS, "train")
+    tcfg = train_config(FL_ROUNDS + 1, crosspod_compression="int8")
+    # the stacked bundle is phase 15 (b)'s: its mesh made before the group
+    one = make_mesh(MeshConfig((1, 1, 1), POD_AXES), device)
+    bundles = {"stacked": bundle_for("fl_round", cfg, shape, one,
+                                     MULTI_POD_MESH, tcfg,
+                                     local_steps=FL_LOCAL)}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    t0 = time.perf_counter()
+    _dist.init(device.type, rank=0, world_size=1,
+               init_file=os.path.join(tmp, "init"))
+    try:
+        mesh = make_mesh(MeshConfig((1, 1, 1), POD_AXES), device.type)
+        log(f"phase 17: world size {dist.get_world_size()}, backend "
+            f"{dist.get_backend()}, mesh {mesh.shape} over {mesh.axis_names} "
+            f"on {mesh.device} ({n_cards} card(s), {card}); group and mesh "
+            f"up in {time.perf_counter() - t0:.3f} s")
+        bundles["distributed"] = bundle_for(
+            "fl_round", cfg, shape, mesh, MULTI_POD_MESH, tcfg,
+            local_steps=FL_LOCAL)
+        dist_fl_round(card, device, bundles)
+        del bundles
+        release()
+        dist_train_step(card, device, tmp)
+    finally:
+        _dist.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if n_cards >= 2:
+        pods_across_cards(card, n_cards, device)
+    else:
+        log("phase 17: one card, so no rank-to-rank exchange ran (NCCL "
+            "takes one rank a card)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3432,6 +3797,14 @@ def main() -> int:
     phase_done("15 (the LM zoo's training path)")
     twin_launches = examples_path(device, step_ms)
     phase_done("16 (the example twins and the dry run)")
+    zero_launches()
+    multi_device_path(card, device)
+    counts = launches()
+    log(f"phase 17 launches of the six kernels: {counts}")
+    if any(counts.values()):
+        raise AssertionError("the multi-device path launched a FedAvg, "
+                             "quantize or top-k kernel")
+    phase_done("17 (the multi-device path)")
 
     # launches: over the main paths each kernel is on, each path run with
     # the counts at 0 (fedavg_reduce: the sync rounds, the event runs, the

@@ -14,8 +14,14 @@ paths): a dict key, a sequence index, and for a ``NamedTuple`` field
 ``1/.m/embed/embedding`` for a ``(params, OptState)`` tree). A bfloat16
 leaf, which npz cannot hold, is stored as its raw bytes in ``uint8``, as
 the reference stores its ``ml_dtypes`` leaves; it is read back through a
-tensor view, so no ``ml_dtypes`` is needed. Restoring takes ``device=``
-where the reference takes ``shardings=``: the port runs on one device.
+tensor view, so no ``ml_dtypes`` is needed.
+
+A tree of DTensors (laid out over a process group) is saved as its full
+leaves: every rank takes part in gathering each leaf, rank 0 writes, and
+the others wait for the publish, so the files are byte for byte those of
+the one-device save. Restoring takes ``device=``, or ``shardings=`` as
+the reference does: each leaf laid out by its ``sharding/rules.Sharding``,
+whatever mesh saved it (an elastic restart).
 """
 from __future__ import annotations
 
@@ -29,8 +35,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import _tree
+from repro_torch.sharding.rules import gather, place
 
 # numpy has no bfloat16: such leaves travel as raw bytes
 _RAW = {"bfloat16": torch.bfloat16}
@@ -87,11 +96,15 @@ def _dtype_name(leaf) -> str:
 def save_checkpoint(directory: str, step: int, tree, *,
                     meta: Optional[dict] = None, blocking: bool = True):
     """Leaves are copied to the host, then written (npz + manifest); with
-    ``blocking=False`` the write runs on a thread, which is returned."""
+    ``blocking=False`` the write runs on a thread, which is returned. A
+    tree with DTensor leaves is gathered (every rank must call) and
+    written by rank 0 while the others wait; such a save blocks."""
+    named = _flatten_with_names(tree)
+    if any(isinstance(v, DTensor) for v in named.values()):
+        return _save_gathered(directory, step, tree, meta)
     tmp = os.path.join(directory, f"step_{step:09d}.tmp")
     final = os.path.join(directory, f"step_{step:09d}")
     os.makedirs(tmp, exist_ok=True)
-    named = _flatten_with_names(tree)
     host = {k: (_host(v), _dtype_name(v), tuple(v.shape))
             for k, v in named.items()}
 
@@ -118,6 +131,23 @@ def save_checkpoint(directory: str, step: int, tree, *,
     return t
 
 
+def _save_gathered(directory, step, tree, meta):
+    """Every rank gathers each leaf; rank 0 copies it to the host and
+    writes the one-device save of the full tree; all wait for it."""
+    leaves, treedef = _tree.flatten(tree)
+    full = []
+    for v in leaves:
+        g = gather(v)
+        full.append(g.detach().to("cpu", copy=True)
+                    if dist.get_rank() == 0 else None)
+        del g
+    if dist.get_rank() == 0:
+        save_checkpoint(directory, step, _tree.unflatten(treedef, full),
+                        meta=meta, blocking=True)
+    dist.barrier()
+    return None
+
+
 def list_steps(directory: str):
     if not os.path.isdir(directory):
         return []
@@ -141,11 +171,14 @@ def _tensor(v: np.ndarray, info: dict) -> torch.Tensor:
 
 
 def load_checkpoint(directory: str, template, *, step: Optional[int] = None,
-                    device=None, verify: bool = True):
-    """Restore into ``template``'s structure (tensors, ``meta`` ones too),
-    each leaf cast to its template's dtype, on ``device`` (default: the
-    template leaf's device, the host for a ``meta`` one).
-    Returns (tree, step, meta)."""
+                    device=None, shardings=None, verify: bool = True):
+    """Restore into ``template``'s structure (tensors, ``meta`` ones and
+    DTensors too), each leaf cast to its template's dtype, on ``device``
+    (default: the template leaf's device, the host for a ``meta`` one).
+    ``shardings``: a tree of the same structure whose leaves are
+    ``Sharding``s (or None); each leaf is then laid out by its own on its
+    mesh's devices, whatever mesh saved it (every rank reads the file
+    and keeps its shard). Returns (tree, step, meta)."""
     steps = list_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -163,8 +196,13 @@ def load_checkpoint(directory: str, template, *, step: Optional[int] = None,
         for k, crc in zip(stored, _crc32s(list(stored.values()))):
             if crc != manifest["leaves"][k]["crc32"]:
                 raise IOError(f"checksum mismatch for {k}")
+    shs = [None] * len(named_t) if shardings is None else \
+        _tree.leaves(shardings)
+    if len(shs) != len(named_t):
+        raise ValueError("load_checkpoint: shardings and template differ in "
+                         "leaves")
     out = []
-    for k, tmpl in named_t.items():
+    for (k, tmpl), sh in zip(named_t.items(), shs):
         v, info = stored.pop(k), manifest["leaves"][k]
         t = _tensor(v, info)
         if tuple(t.shape) != tuple(tmpl.shape):
@@ -172,11 +210,20 @@ def load_checkpoint(directory: str, template, *, step: Optional[int] = None,
                 f"shape mismatch for {k}: ckpt {tuple(t.shape)} vs template "
                 f"{tuple(tmpl.shape)}")
         dev = device
-        if dev is None:
-            dev = tmpl.device if tmpl.device.type != "meta" else "cpu"
-        out.append(t.to(dev, tmpl.dtype))
+        if sh is not None:
+            dev = sh.mesh.device
+        elif dev is None:
+            dev = _device_of(tmpl)
+        out.append(place(t.to(dev, tmpl.dtype), sh))
     return (_tree.unflatten(_tree.flatten(template)[1], out), step,
             manifest["meta"])
+
+
+def _device_of(tmpl) -> torch.device:
+    """Where a template leaf's restored value goes: its device (this
+    rank's, for a DTensor), the host for a ``meta`` one."""
+    dev = (tmpl.to_local() if isinstance(tmpl, DTensor) else tmpl).device
+    return dev if dev.type != "meta" else torch.device("cpu")
 
 
 class CheckpointManager:
@@ -202,10 +249,10 @@ class CheckpointManager:
             t.join()
         self._pending.clear()
 
-    def restore(self, template, *, step=None, device=None):
+    def restore(self, template, *, step=None, device=None, shardings=None):
         self.wait()
         return load_checkpoint(self.directory, template, step=step,
-                               device=device)
+                               device=device, shardings=shardings)
 
     def latest_step(self) -> Optional[int]:
         steps = list_steps(self.directory)

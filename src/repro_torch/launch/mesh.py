@@ -1,17 +1,23 @@
 """Port of ``src/repro/launch/mesh.py``: mesh construction.
 
 In place of ``jax.make_mesh`` a mesh here is a small record (axis names,
-shape, device). The port runs on one device, so ``make_mesh`` makes only a
-mesh of one device. The production meshes (256 and 512 devices) are
-abstract: ``make_production_mesh`` places them on ``meta``, where nothing
-computes a value, for the dry run (``launch/dryrun.py``).
+shape, this rank's device and, over more than one rank, the
+``DeviceMesh``). With no process group up, ``make_mesh`` makes a mesh of
+one device, a plain record. Inside a group (torchrun, or
+``repro_torch._dist.init``) it builds the ``DeviceMesh`` over the whole
+group, whose size must be the mesh's device count: one rank per device,
+NCCL on the card, gloo on the CPU. The production meshes (256 and 512
+devices) are abstract: ``make_production_mesh`` places them on ``meta``,
+where nothing computes a value, for the dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
+from repro_torch import _dist
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import (MULTI_POD_MESH, SINGLE_POD_MESH,
                                       SMOKE_MESH, MeshConfig)
@@ -21,7 +27,10 @@ from repro_torch.configs.base import (MULTI_POD_MESH, SINGLE_POD_MESH,
 class Mesh:
     axis_names: tuple
     shape: tuple
-    device: torch.device
+    device: torch.device  # this rank's device
+    # the DeviceMesh over the group; whether a mesh places tensors is
+    # sharding.rules.placing's to say
+    device_mesh: Optional[object] = None
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -33,15 +42,16 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def make_mesh(cfg: MeshConfig, device=None) -> Mesh:
-    """``cfg``'s mesh on ``device`` (the card unless another is named);
-    only a one-device config can be made."""
-    if cfg.num_devices != 1:
-        raise NotImplementedError(
-            f"mesh {cfg.shape} over {cfg.axis_names} needs "
-            f"{cfg.num_devices} devices; the port runs on one "
-            "(ROADMAP A, item 16)")
-    return Mesh(tuple(cfg.axis_names), tuple(cfg.shape),
-                resolve_device(device))
+    """``cfg``'s mesh on ``device`` (the card unless another is named):
+    with no process group, a one-device record; inside one, the
+    ``DeviceMesh`` over the group in ``cfg``'s axis order, each rank on
+    its own device. Raises if the group's size is not ``cfg``'s device
+    count or its backend is not the device's."""
+    names, shape = tuple(cfg.axis_names), tuple(cfg.shape)
+    if not _dist.is_initialized() and cfg.num_devices == 1:
+        return Mesh(names, shape, resolve_device(device))
+    dm = _dist.device_mesh(shape, names, device)
+    return Mesh(names, shape, _dist.rank_device(device), dm)
 
 
 def make_smoke_mesh(device=None) -> Mesh:

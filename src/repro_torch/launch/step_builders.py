@@ -6,8 +6,19 @@ Each builder takes the reference's arguments, with the port's mesh record
 (``launch/mesh.py``) for the mesh. A ``StepBundle``'s ``fn`` is a plain
 callable on tensors on the mesh's device; its ``in_specs`` are ``meta``
 tensors and its shardings fields hold the plan's partition specs (tuples,
-``sharding/rules.py``). The port runs on one device, so the specs describe
-the reference's layout and place nothing.
+``sharding/rules.py``), for ``mesh_cfg`` as the reference's do.
+
+On a mesh over a process group (``make_mesh`` inside one), ``fn`` lays
+its arguments out as ``in_placements`` says (the plan on the real mesh:
+parameters and moments FSDP over ``data``, TP storage over ``model``, the
+batch over the batch axes), as the reference's ``jit`` does with its
+``in_shardings``, and returns DTensors. Each rank gathers the parameters,
+takes the forward and backward of its batch shard whole (the matmuls are
+not split over ``model``: ROADMAP A, item 18), averages the gradient
+over the batch axes in f32 and keeps its shard of it, and steps its
+shards of the parameters and moments. On one device the same code runs
+with no collective and places nothing. A batch shard whose MoE tokens
+would fall into other routing groups than the whole batch's raises.
 
 Gradients come from ``torch.autograd.grad`` over the parameter leaves.
 The train step's gradient accumulation keeps the reference's arithmetic
@@ -18,9 +29,12 @@ parameter dtype), and every optimizer update its operations
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch import _tree
 from repro_torch.configs.base import (MeshConfig, ModelConfig, ShapeConfig,
@@ -29,7 +43,15 @@ from repro_torch.models import build_model
 from repro_torch.optim.optimizers import (OptState, adamw_init, adamw_update,
                                           opt_state_axes)
 from repro_torch.optim.schedules import cosine_warmup
-from repro_torch.sharding.rules import MeshPlan, Sharder, _is_axes
+from repro_torch.sharding.rules import (MeshPlan, Sharding,
+                                        contiguous_stride, gather,
+                                        is_axes_leaf, like, local, place_on,
+                                        place_tree, placing, spec_axes)
+
+# the next ROADMAP item (A): what a mesh over several ranks does not do yet
+MULTI_DEVICE_SERVE = ("prefill and decode on a mesh of more than one device "
+                      "are not ported yet (ROADMAP A, item 19): serve on one "
+                      "device, or lower on meta for the dry run")
 
 
 @dataclasses.dataclass
@@ -42,18 +64,102 @@ class StepBundle:
     model: object
     plan: MeshPlan
     abstract_state: object  # params/opt/cache meta trees (for reports)
-
-
-def _is_axes_leaf(x) -> bool:
-    return x is None or (isinstance(x, tuple) and _is_axes(x))
+    # Sharding trees of fn's tensor arguments on the real mesh (a None for
+    # each on a mesh that places nothing: one device or meta)
+    in_placements: Optional[tuple] = None
 
 
 def _model(cfg: ModelConfig, plan: MeshPlan, mesh):
-    """The model on the mesh's device. The reference hands its models a
-    ``Sharder``; the port's models take none, so the sharder is checked
-    here: on a mesh of more than one device it raises."""
-    Sharder(plan, mesh)(None, ())
+    """The model on this rank's device. The reference hands its models a
+    ``Sharder``; the port's models take none (a step places the trees it
+    is given), so only the mesh is checked here."""
+    placing(mesh)  # raises on a mesh that could place nothing
     return build_model(cfg, device=mesh.device)
+
+
+def _shardings(mesh, mesh_cfg: MeshConfig, pairs, extra_rules=()) -> tuple:
+    """The Sharding tree of each ``(axes tree, shape tree)`` pair on
+    ``mesh``, by ``mesh_cfg``'s rules at ``mesh``'s axis sizes (so the
+    divisibility fallback keeps every shard whole); a None for each on a
+    mesh that places nothing, which ``place_tree`` passes through."""
+    if not placing(mesh):
+        return (None,) * len(pairs)
+    lay = MeshPlan(dataclasses.replace(mesh_cfg, shape=tuple(mesh.shape)),
+                   extra_rules)
+    return tuple(lay.tree_shardings(mesh, a, s) for a, s in pairs)
+
+
+class _BatchAxes:
+    """The dims of ``device_mesh`` of more than one rank that a batch's
+    Sharding tree splits it over (its first leaf's spec, past ``skip``
+    leading entries): each rank's gradient and loss are averaged over
+    them, in f32. None for either (nothing placed): no ranks."""
+
+    def __init__(self, device_mesh, shardings, skip: int = 0):
+        self.groups, self.n = [], 1
+        if device_mesh is None or shardings is None:
+            return
+        names = tuple(device_mesh.mesh_dim_names)
+        for e in _tree.leaves(shardings)[0].spec[skip:]:
+            for j in (names.index(a) for a in spec_axes(e)):
+                if device_mesh.size(j) > 1:
+                    self.groups.append(device_mesh.get_group(j))
+                    self.n *= device_mesh.size(j)
+
+    def check_moe_groups(self, cfg: ModelConfig, rows: int, seq: int
+                         ) -> None:
+        """Raise unless a batch of ``rows`` x ``seq`` tokens, split over
+        these ranks, routes its MoE tokens in the whole batch's groups.
+        ``moe_apply`` groups the tokens it is given, ``min(group_size, T)``
+        at a time, so a rank's shard must hold whole groups of the whole
+        batch: else capacities and dropped tokens would differ from one
+        device's, silently."""
+        if not cfg.num_experts or self.n == 1:
+            return
+        T = rows * seq
+        g = min(cfg.moe_group_size, T)
+        g = T if T % g else g  # moe_apply's single-group fallback
+        if (T // self.n) % g:
+            raise ValueError(
+                f"a batch of {rows} x {seq} tokens over {self.n} ranks "
+                f"leaves {T // self.n} tokens a rank, not a multiple of "
+                f"the {g}-token MoE routing group of the whole batch: "
+                f"raise the batch or seq_len, or lower moe_group_size")
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the batch's ranks, in ``t``'s dtype (the
+        sum in f32, then one division); ``t`` itself over one rank."""
+        if not self.groups:
+            return t.detach()
+        t32 = t.detach().to(torch.float32, copy=True)  # reduced in place
+        for g in self.groups:
+            dist.all_reduce(t32, group=g)
+        return (t32 / self.n).to(t.dtype)
+
+
+def _grads_on_shards(model, params, batch, batch_axes):
+    """-> (loss, gradients laid out as ``params``): ``value_and_grad`` of
+    the gathered parameters on this rank's batch shard, averaged over the
+    batch's ranks, each rank keeping its shard (on one device: the plain
+    ``value_and_grad``)."""
+    leaves, treedef = _tree.flatten(params)
+    with torch.no_grad():
+        full = [gather(p) for p in leaves]
+    loss, grads = value_and_grad(model, _tree.unflatten(treedef, full),
+                                 batch)
+    del full
+    out = []
+    with torch.no_grad():
+        for p, g in zip(leaves, _tree.leaves(grads)):
+            out.append(_shard_as(p, batch_axes.mean(g)))
+    return batch_axes.mean(loss), _tree.unflatten(treedef, out)
+
+
+def _shard_as(x, full):
+    """``full`` (equal on every rank) cut as the DTensor ``x`` is."""
+    if not isinstance(x, DTensor):
+        return full
+    return place_on(full, x.device_mesh, x.placements)
 
 
 def value_and_grad(model, params, batch):
@@ -90,33 +196,50 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     """Synchronous data/tensor-parallel train step (one optimizer update).
 
     ``fn(params, opt_state, batch, step) -> (params, opt_state, {loss,
-    gnorm, lr})``, out of place: the arguments are left as they were.
+    gnorm, lr})``, out of place: the arguments are left as they were. On
+    a mesh over a process group the trees are laid out by
+    ``in_placements`` (the batch split over ``pod`` and ``data``) and come
+    back as DTensors; the metrics are every rank's.
     """
     plan = MeshPlan(mesh_cfg)
     model = _model(cfg, plan, mesh)
     p_shapes, p_axes, opt_shapes, o_axes = _abstract(model, train_cfg)
     in_specs, in_axes = model.input_specs(shape)
+    placed = _shardings(mesh, mesh_cfg, ((p_axes, p_shapes),
+                                         (o_axes, opt_shapes),
+                                         (in_axes, in_specs)))
+    batch_axes = _BatchAxes(mesh.device_mesh, placed[2])
+    batch_axes.check_moe_groups(
+        cfg, shape.global_batch // train_cfg.microbatches, shape.seq_len)
+
+    def grads_of(params, batch):
+        return _grads_on_shards(model, params, batch, batch_axes)
 
     def train_step(params, opt_state, batch, step):
+        params, opt_state, batch = (place_tree(t, s) for t, s in zip(
+            (params, opt_state, batch), placed))
+        batch = _tree.map(local, batch)
         if train_cfg.microbatches > 1:
             n = train_cfg.microbatches
-            gsum = _tree.map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            gsum = _tree.map(lambda p: like(p, torch.zeros(
+                local(p).shape, dtype=torch.float32,
+                device=local(p).device)), params)
             lsum = 0.0
             for i in range(n):
                 mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
                       for k, v in batch.items()}
-                l, g = value_and_grad(model, params, mb)
+                l, g = grads_of(params, mb)
                 with torch.no_grad():
-                    _tree.map(lambda s, x: s.add_(x), gsum, g)
+                    _tree.map(lambda s, x: local(s).add_(local(x)), gsum, g)
                 lsum = lsum + l
                 del g
             with torch.no_grad():
-                grads = _tree.map(lambda g: (g / n).to(torch.bfloat16), gsum)
+                grads = _tree.map(lambda g: like(g, (local(g) / n).to(
+                    torch.bfloat16)), gsum)
             del gsum
             loss = lsum / n
         else:
-            loss, grads = value_and_grad(model, params, batch)
+            loss, grads = grads_of(params, batch)
         lr = _lr(step, train_cfg, mesh.device)
         new_params, new_opt, gnorm = adamw_update(grads, opt_state, params,
                                                   lr, train_cfg)
@@ -130,15 +253,22 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     lower_args = (p_shapes, opt_shapes, in_specs,
                   torch.empty((), dtype=torch.int32, device="meta"))
     return StepBundle(train_step, lower_args, in_shardings, out_shardings,
-                      model, plan, {"params": p_shapes, "opt": opt_shapes})
+                      model, plan, {"params": p_shapes, "opt": opt_shapes},
+                      placed)
 
 
 # ---------------------------------------------------------------------------
 # serve steps (prefill forward / single-token decode)
 # ---------------------------------------------------------------------------
 
+def _one_device_serve(mesh) -> None:
+    if placing(mesh) and math.prod(mesh.shape) > 1:
+        raise NotImplementedError(MULTI_DEVICE_SERVE)
+
+
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                       mesh_cfg: MeshConfig):
+    _one_device_serve(mesh)
     plan = MeshPlan(mesh_cfg)
     model = _model(cfg, plan, mesh)
     p_shapes, p_axes = model.param_shapes(), model.param_axes()
@@ -162,6 +292,7 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
 def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                      mesh_cfg: MeshConfig):
     """One new token against a seq_len KV cache (decode_* cells)."""
+    _one_device_serve(mesh)
     plan = MeshPlan(mesh_cfg)
     model = _model(cfg, plan, mesh)
     p_shapes, p_axes = model.param_shapes(), model.param_axes()
@@ -196,21 +327,43 @@ def _mean(scalars):
     return torch.sum(torch.stack(scalars)) / len(scalars)
 
 
-def crosspod_mean(anchor_leaf, stacked_leaf, compression: str):
+def crosspod_mean(anchor_leaf, stacked_leaf, compression: str, *,
+                  n_pods: Optional[int] = None, pod_group=None,
+                  scale_group=None):
     """The pods' mean delta from ``anchor_leaf`` (f32), as the round
     exchanges it. ``"int8"``: one scale over all pods, ``max|delta| / 127
     + 1e-12``; each delta rounded half to even to an int8 level in
     [-127, 127]; the levels summed over pods in int32, times the scale,
-    over the pod count. Otherwise the f32 mean of the deltas."""
-    n_pods = stacked_leaf.shape[0]
+    over the pod count. Otherwise the f32 mean of the deltas.
+
+    ``stacked_leaf`` holds this rank's pods (all ``n_pods`` of them when
+    no group is given). Over several ranks the max is all-reduced over
+    ``scale_group`` (every rank of the mesh: all pods, all shards), and
+    the int8 levels (or f32 deltas) are all-gathered over ``pod_group``
+    in pod order before the sum. Max and an integer sum do not depend on
+    order, so an int8 exchange is bit for bit the one-device one."""
+    n_pods = stacked_leaf.shape[0] if n_pods is None else n_pods
     delta = stacked_leaf.float() - anchor_leaf.float()[None]
     if compression == "int8":
-        scale = torch.max(torch.abs(delta)) / 127.0 + 1e-12
+        amax = torch.max(torch.abs(delta))
+        if scale_group is not None:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=scale_group)
+        scale = amax / 127.0 + 1e-12
         q = torch.clamp(torch.round(delta / scale), -127, 127).to(torch.int8)
         del delta
+        q = _gather_pods(q, pod_group)  # 1-byte payloads on the wire
         return (torch.sum(q.to(torch.int32), dim=0).float() * scale
                 / n_pods)
-    return torch.sum(delta, dim=0) / n_pods
+    return torch.sum(_gather_pods(delta, pod_group), dim=0) / n_pods
+
+
+def _gather_pods(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's pods of ``x`` (leading dim), in pod order."""
+    if group is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
 
 
 def make_fl_round_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -222,12 +375,19 @@ def make_fl_round_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     ``fn(params_stacked, opt_stacked, anchor, batches, step) -> (reset,
     opt_stacked, new_anchor, loss)``: the parameters, optimizer states and
     batches are stacked over a leading pod dimension (batches ``(n_pods,
-    local_steps, batch / n_pods, ...)``). The reference ``vmap``s the pods
-    over its mesh; one device here runs them one after another, each
-    pod's steps written into its own slice of the stacked trees. So ``fn``
-    consumes ``params_stacked`` and ``opt_stacked``: it returns those same
-    trees, the optimizer state stepped (not reset) and every pod's
-    parameters a copy of the new anchor.
+    local_steps, batch / n_pods, ...)``), ``n_pods`` being ``mesh_cfg``'s
+    pod count. The reference ``vmap``s the pods over its mesh. Here the
+    real mesh's pod axis, of size ``p``, must divide ``n_pods``: each rank
+    holds ``n_pods / p`` pods and runs them one after another, each pod's
+    steps written into its own slice of the stacked trees. On one device
+    (``p = 1``) that is every pod; over a process group the stacked trees
+    are laid out by ``in_placements`` (pods over ``pod``, each pod's
+    leaves by the plan over ``data`` and ``model``, its batch over
+    ``data``), and each pod's norm is its own. ``fn`` consumes
+    ``params_stacked`` and ``opt_stacked``: it returns those same trees
+    (on one device; over a group, the placed ones), the optimizer state
+    stepped (not reset) and every pod's parameters a copy of the new
+    anchor.
 
     ``fn.local_steps(params_stacked, opt_stacked, batches, step)`` and
     ``fn.exchange(anchor, params_stacked)`` are its two halves, for a
@@ -250,10 +410,10 @@ def make_fl_round_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
     def stack_axes(tree, lead=("pod_stack",)):
         return _tree.map(lambda a: lead + tuple(a or ()), tree,
-                         is_leaf=_is_axes_leaf)
+                         is_leaf=is_axes_leaf)
 
-    plan_stacked = MeshPlan(pod_mesh_cfg,
-                            extra_rules=(("pod_stack", ("pod",)),))
+    stack_rules = (("pod_stack", ("pod",)),)
+    plan_stacked = MeshPlan(pod_mesh_cfg, extra_rules=stack_rules)
     ps_shapes, ps_axes = stack(p_shapes), stack_axes(p_axes)
     os_shapes, os_axes = stack(opt_shapes), stack_axes(o_axes)
     # per-pod batch: local batch = global/n_pods, stacked over pods
@@ -263,31 +423,52 @@ def make_fl_round_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                               device="meta"), in_specs)
     bs_axes = stack_axes(in_axes, ("pod_stack", None))
 
+    pods = _PodLayout(mesh, n_pods)
+    ps_lay, os_lay, bs_lay = _shardings(
+        mesh, pod_mesh_cfg, ((ps_axes, ps_shapes), (os_axes, os_shapes),
+                             (bs_axes, bs_specs)), stack_rules)
+    # the anchor as one pod's slice of the stacked layout, on every pod
+    a_lay = None if ps_lay is None else _tree.map(
+        lambda sh: Sharding(mesh, _trim(sh.spec[1:])), ps_lay)
+    placed = (ps_lay, os_lay, a_lay, bs_lay)
+    batch_axes = _BatchAxes(pods.sub_mesh, bs_lay, skip=1)
+    batch_axes.check_moe_groups(cfg, shape.global_batch // n_pods,
+                                shape.seq_len)
+
     def pod_slice(tree, i):
-        return _tree.map(lambda x: x[i], tree)
+        return _tree.map(lambda x: pods.slice(x, i), tree)
+
+    def place(args, which):
+        return tuple(place_tree(t, placed[w]) for t, w in zip(args, which))
 
     def local_steps_fn(params_stacked, opt_stacked, batches, step):
         """Every pod's ``local_steps`` AdamW steps, each pod's written into
         its slice of the stacked trees. -> (params_stacked, opt_stacked,
         the mean loss over pods and steps)."""
+        params_stacked, opt_stacked, batches = place(
+            (params_stacked, opt_stacked, batches), (0, 1, 3))
         lr = _lr(step, train_cfg, mesh.device)  # one lr for every step
         pod_losses = []
-        for i in range(n_pods):
+        for i in range(pods.here):
             p, o = pod_slice(params_stacked, i), pod_slice(opt_stacked, i)
             losses = []
             for k in range(local_steps):
-                mb = {key: v[i, k] for key, v in batches.items()}
-                loss, g = value_and_grad(model, p, mb)
+                mb = {key: local(v)[i, k] for key, v in batches.items()}
+                loss, g = _grads_on_shards(model, p, mb, batch_axes)
                 p, o, _ = adamw_update(g, o, p, lr, train_cfg, inplace=True)
                 losses.append(loss)
                 del g
             pod_losses.append(_mean(losses))
+        # every pod's loss, in pod order
+        pod_losses = list(_gather_pods(torch.stack(pod_losses),
+                                       pods.pod_group))
         return params_stacked, opt_stacked, _mean(pod_losses)
 
     def exchange(anchor, params_stacked):
         """-> (params_stacked with every pod set to the new anchor, the new
         anchor): each leaf's anchor plus the pods' exchanged mean delta,
         in the anchor's dtype."""
+        anchor, params_stacked = place((anchor, params_stacked), (2, 0))
         a_leaves, treedef = _tree.flatten(anchor)
         s_leaves, sdef = _tree.flatten(params_stacked)
         if sdef != treedef:
@@ -295,10 +476,13 @@ def make_fl_round_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
         new = []
         with torch.no_grad():
             for a, s in zip(a_leaves, s_leaves):
-                mean = crosspod_mean(a, s, train_cfg.crosspod_compression)
-                new.append((a.float() + mean).to(a.dtype))
+                a_l, s_l = local(a), local(s)
+                mean = crosspod_mean(a_l, s_l, train_cfg.crosspod_compression,
+                                     n_pods=n_pods, pod_group=pods.pod_group,
+                                     scale_group=pods.scale_group)
+                new.append(like(a, (a_l.float() + mean).to(a.dtype)))
                 del mean
-                s.copy_(new[-1].expand_as(s))  # reset: a real copy per pod
+                s_l.copy_(local(new[-1]).expand_as(s_l))  # a copy per pod
         return params_stacked, _tree.unflatten(treedef, new)
 
     def fl_round(params_stacked, opt_stacked, anchor, batches, step):
@@ -320,7 +504,54 @@ def make_fl_round_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                   torch.empty((), dtype=torch.int32, device="meta"))
     return StepBundle(fl_round, lower_args, in_shardings, out_shardings,
                       model, plan_stacked,
-                      {"params": ps_shapes, "opt": os_shapes})
+                      {"params": ps_shapes, "opt": os_shapes}, placed)
+
+
+def _trim(spec: tuple) -> tuple:
+    """``spec`` without trailing ``None``s, as the plan writes specs."""
+    spec = list(spec)
+    while spec and spec[-1] is None:
+        spec.pop()
+    return tuple(spec)
+
+
+class _PodLayout:
+    """The pods on a mesh: ``here`` pods on each rank, the ``pod``
+    sub-group the exchange gathers over, the group its scales are
+    all-reduced over (every rank), and the mesh of one pod's ranks
+    (``data`` x ``model``), on which a pod's slice of a stacked DTensor
+    lives. On a mesh that places nothing every pod is here, with no
+    groups and no sub-mesh."""
+
+    def __init__(self, mesh, n_pods: int):
+        self.here = n_pods
+        self.pod_group = self.scale_group = self.sub_mesh = None
+        if not placing(mesh):
+            return
+        dm = mesh.device_mesh
+        names = tuple(dm.mesh_dim_names)
+        p = dm.size(names.index("pod"))
+        if n_pods % p:
+            raise ValueError(f"{n_pods} pods do not divide over the mesh's "
+                             f"pod axis of {p}")
+        self.here = n_pods // p
+        self.pod_group = dm.get_group("pod")
+        self.scale_group = dist.group.WORLD
+        self.rest = tuple(n for n in names if n != "pod")
+        self.sub_mesh = dm[self.rest] if self.rest else None
+
+    def slice(self, x, i: int):
+        """Pod ``i`` (of this rank's) of a stacked leaf: a view of its
+        local rows, as a DTensor on the pod's mesh."""
+        if not isinstance(x, DTensor) or self.sub_mesh is None:
+            return local(x)[i]
+        names = tuple(x.device_mesh.mesh_dim_names)
+        sub = tuple(Shard(pl.dim - 1) if isinstance(pl, Shard) else pl
+                    for pl in (x.placements[names.index(n)]
+                               for n in self.rest))
+        return DTensor.from_local(local(x)[i], self.sub_mesh, sub,
+                                  run_check=False, shape=x.shape[1:],
+                                  stride=contiguous_stride(x.shape[1:]))
 
 
 def stack_pods(tree, n_pods: int):

@@ -9,16 +9,24 @@ them in the reference's order. ``torch.optim.AdamW`` is a different
 update (its decoupled decay scales ``p`` by ``1 - lr*wd`` before the Adam
 step) and is not used. Updates are out of place: they return new trees,
 as the reference's do, and run without autograd.
+
+Leaves may be DTensors (``sharding/rules.py``), all of a tree's leaves
+laid out alike across the trees: each update runs on the local shards,
+elementwise, and the global norm sums each leaf's squares over the mesh
+dims that cut it, so every element counts once. A tree on a sub-mesh
+(one pod's, in the FL round) sums over that sub-mesh only.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import _tree
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.layers import dtype_of
+from repro_torch.sharding.rules import like, local, sharded_dims
 
 
 class OptState(NamedTuple):
@@ -33,19 +41,44 @@ def clip_by_global_norm(grads, max_norm: float):
     reports a norm of 0."""
     leaves = _tree.leaves(grads)
     if not max_norm:
-        dev = leaves[0].device if leaves else None
+        dev = local(leaves[0]).device if leaves else None
         return grads, torch.zeros((), dtype=torch.float32, device=dev)
     with torch.no_grad():
         total = 0
-        for g in leaves:
-            total = total + torch.sum(torch.square(g.float()))
+        for s in _squared_sums(leaves):
+            total = total + s
         gnorm = torch.sqrt(total)
         # a true division: ``float / tensor`` would multiply by the
         # reciprocal, a second rounding
         scale = torch.clamp(torch.div(torch.full_like(gnorm, max_norm),
                                       torch.clamp(gnorm, min=1e-9)), max=1.0)
-        return _tree.map(lambda g: (g.float() * scale).to(g.dtype),
-                         grads), gnorm
+        return _tree.map(lambda g: like(g, (local(g).float() * scale).to(
+            g.dtype)), grads), gnorm
+
+
+def _squared_sums(leaves) -> list:
+    """Each leaf's f32 sum of squares over all its elements: a DTensor's
+    local sums all-reduced over the mesh dims of more than one rank that
+    cut it, one collective per (mesh, dims) set."""
+    sums = [torch.sum(torch.square(local(g).float())) for g in leaves]
+    sets = []  # [(device mesh, dims, leaf indices)]
+    for i, g in enumerate(leaves):
+        dims = tuple(j for j in sharded_dims(g) if g.device_mesh.size(j) > 1)
+        if not dims:
+            continue
+        for dm, ds, idx in sets:
+            if ds == dims and dm == g.device_mesh:
+                idx.append(i)
+                break
+        else:
+            sets.append((g.device_mesh, dims, [i]))
+    for dm, dims, idx in sets:
+        buf = torch.stack([sums[i] for i in idx])
+        for j in dims:
+            dist.all_reduce(buf, group=dm.get_group(j))
+        for k, i in enumerate(idx):
+            sums[i] = buf[k]
+    return sums
 
 
 # ---------------------------------------------------------------------------
@@ -53,14 +86,14 @@ def clip_by_global_norm(grads, max_norm: float):
 # ---------------------------------------------------------------------------
 
 def _zeros_like(params, dtype):
-    return _tree.map(lambda p: torch.zeros(p.shape, dtype=dtype,
-                                           device=p.device), params)
+    return _tree.map(lambda p: like(p, torch.zeros(
+        local(p).shape, dtype=dtype, device=local(p).device)), params)
 
 
 def _count0(params):
     leaves = _tree.leaves(params)
     return torch.zeros((), dtype=torch.int32,
-                       device=leaves[0].device if leaves else None)
+                       device=local(leaves[0]).device if leaves else None)
 
 
 def adamw_init(params, cfg: TrainConfig) -> OptState:
@@ -78,13 +111,15 @@ def adamw_update(grads, state: OptState, params, lr, cfg: TrainConfig, *,
     with the same roundings: a memory saving for the cross-pod round,
     which steps each pod's slice where it lies."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    lr = local(lr)
     with torch.no_grad():
-        count = state.count + 1
+        count = local(state.count) + 1
         b1, b2 = cfg.beta1, cfg.beta2
         c1 = 1.0 - torch.pow(b1, count.float())
         c2 = 1.0 - torch.pow(b2, count.float())
 
-        def upd(p, g, m, v):
+        def upd(P, G, M, V):
+            p, g, m, v = local(P), local(G), local(M), local(V)
             g32 = g.float()
             m32 = b1 * m.float() + (1 - b1) * g32
             v32 = b2 * v.float() + (1 - b2) * torch.square(g32)
@@ -92,14 +127,19 @@ def adamw_update(grads, state: OptState, params, lr, cfg: TrainConfig, *,
             step = step + cfg.weight_decay * p.float()
             new_p = p.float() - lr * step
             if inplace:  # copy_ rounds to the leaf's dtype as .to() does
-                return p.copy_(new_p), m.copy_(m32), v.copy_(v32)
-            return new_p.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+                p.copy_(new_p), m.copy_(m32), v.copy_(v32)
+                return P, M, V
+            return (like(P, new_p.to(p.dtype)), like(M, m32.to(m.dtype)),
+                    like(V, v32.to(v.dtype)))
 
         out, treedef = _apply(upd, params, grads, state.m, state.v)
         new_p, new_m, new_v = (_tree.unflatten(treedef, [o[i] for o in out])
                                for i in range(3))
     if inplace:
-        count = state.count.copy_(count)
+        local(state.count).copy_(count)
+        count = state.count
+    else:
+        count = like(state.count, count)
     return new_p, OptState(count=count, m=new_m, v=new_v), gnorm
 
 
@@ -127,18 +167,21 @@ def sgd_init(params, cfg: TrainConfig) -> OptState:
 def sgd_update(grads, state: OptState, params, lr, cfg: TrainConfig,
                momentum: float = 0.9):
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    lr = local(lr)
     with torch.no_grad():
 
-        def upd(p, g, m):
+        def upd(P, G, M):
+            p, g, m = local(P), local(G), local(M)
             g32 = g.float()
             m32 = momentum * m.float() + g32
             new_p = p.float() - lr * m32
-            return new_p.to(p.dtype), m32.to(m.dtype)
+            return like(P, new_p.to(p.dtype)), like(M, m32.to(m.dtype))
 
         out, treedef = _apply(upd, params, grads, state.m)
         new_p, new_m = (_tree.unflatten(treedef, [o[i] for o in out])
                         for i in range(2))
-    return new_p, OptState(count=state.count + 1, m=new_m, v={}), gnorm
+    count = like(state.count, local(state.count) + 1)
+    return new_p, OptState(count=count, m=new_m, v={}), gnorm
 
 
 def make_optimizer(cfg: TrainConfig):

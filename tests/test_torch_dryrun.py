@@ -228,9 +228,9 @@ def test_production_mesh(multi_pod):
                    cfg)
     assert all(l.device.type == "meta" for l in
                jax.tree.leaves(b.in_specs, is_leaf=torch.is_tensor))
-    # a real device of that size still raises
+    # a real device of that size, with no DeviceMesh over ranks, raises
     real = Mesh(mesh.axis_names, mesh.shape, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="no DeviceMesh"):
         Sharder(MeshPlan(cfg), real)(torch.ones(4, 8), ("batch", None))
 
 

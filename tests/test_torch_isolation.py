@@ -1,6 +1,7 @@
-"""The port stands alone: nothing in ``src/repro_torch/``,
-``examples_torch/`` or ``chip_smoke.py`` imports JAX or the JAX package
-``repro``.
+"""The port stands alone: nothing in ``src/repro_torch/`` (``_dist.py``,
+the process group, among them), ``examples_torch/``, ``chip_smoke.py`` or
+the spawned ranks' entry point ``tests/torch_multidevice_worker.py``
+imports JAX or the JAX package ``repro``.
 
 Two checks: an AST walk of every source file for ``import jax`` /
 ``jaxlib`` / ``repro`` (absolute imports of ``repro_torch`` are fine),
@@ -24,7 +25,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 TWINS = sorted((ROOT / "examples_torch").glob("*.py"))
-SOURCES = sorted(PORT.rglob("*.py")) + TWINS + [ROOT / "chip_smoke.py"]
+# the entry point of tests/test_torch_multidevice.py's spawned ranks
+WORKER = ROOT / "tests" / "torch_multidevice_worker.py"
+SOURCES = sorted(PORT.rglob("*.py")) + TWINS + [ROOT / "chip_smoke.py",
+                                                 WORKER]
 
 
 def forbidden_imports(path: Path):
@@ -70,10 +74,11 @@ def test_port_imports_with_jax_blocked():
             f"for m in {modules!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
             "import importlib.util\n"
-            f"for path in {[str(p) for p in TWINS]!r}:\n"
+            f"for path in {[str(p) for p in TWINS + [WORKER]]!r}:\n"
             "    spec = importlib.util.spec_from_file_location('twin', path)\n"
             "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-            "assert 'repro_torch.launch.fl_train' in sys.modules\n")
+            "assert 'repro_torch.launch.fl_train' in sys.modules\n"
+            "assert 'repro_torch._dist' in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

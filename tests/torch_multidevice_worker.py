@@ -1,0 +1,376 @@
+"""One rank of ``tests/test_torch_multidevice.py``'s process groups, on
+the CPU over gloo. It imports nothing of JAX or the JAX package
+(``tests/test_torch_isolation.py`` checks), so a spawned rank starts in
+seconds and never starts XLA's thread pool beside its neighbours.
+
+    python tests/torch_multidevice_worker.py SCENARIO RANK WORLD INIT_FILE DIR
+
+``DIR`` holds the inputs the test wrote (``params.pt``, or
+``params_{arch}.pt`` for the train scenario: the reference's initialised
+smoke parameters in f32, converted; ``batches_{arch}.npz``) and receives
+what the ranks found: rank 0 writes the gathered trees, every rank its own
+``checks_{rank}.json``.
+
+- ``pods``, 8 ranks on (2, 2, 2): every arch's smoke tree placed by the
+  multi-pod plan (local shard shapes); ``Sharder`` and ``constrain`` on
+  plain and DTensor leaves; the multipod twin's FL round with one pod a
+  ``pod`` coordinate (its halves, each round's states for the reference,
+  the exchange against the one-device ``crosspod_mean``, the twin's own
+  ``run_rounds`` and ``main``); a checkpoint saved across the ranks and
+  restored onto a (4, 2) mesh's placements.
+- ``train``, 4 ranks on (2, 2): ``make_train_step``'s 3 steps of qwen3-8b
+  (1 and 2 microbatches) and of granite-moe (its routing groups whole on
+  each rank); the no-fallback checks.
+"""
+import dataclasses
+import importlib.util
+import json
+import sys
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch import _dist, _tree  # noqa: E402
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.configs import ARCH_ORDER, smoke_config  # noqa: E402
+from repro_torch.configs.base import (MeshConfig, ShapeConfig,  # noqa: E402
+                                      TrainConfig)
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.step_builders import (bundle_for,  # noqa: E402
+                                              crosspod_mean, stack_pods)
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.optim import adamw_init, sgd_init, sgd_update  # noqa: E402
+from repro_torch.sharding import (MeshPlan, Sharder, Sharding,  # noqa: E402
+                                  constrain, gather_tree, place, place_tree)
+
+POD_AXES = ("pod", "data", "model")
+ROUNDS = 2
+# the train scenario: tests/test_torch_train.py's schedule and shape
+TRAIN = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+BATCH, SEQ, STEPS = 4, 16, 3
+# an MoE arch at a seq that gives each of the 2 data ranks one whole
+# 64-token routing group of the 128-token batch
+MOE, MOE_SEQ = "granite-moe-1b-a400m", 32
+
+
+def f32_smoke(arch):
+    return dataclasses.replace(smoke_config(arch), dtype="float32",
+                               param_dtype="float32")
+
+
+def twin():
+    spec = importlib.util.spec_from_file_location(
+        "multipod_fl_train", ROOT / "examples_torch" / "multipod_fl_train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host(tree):
+    """Every leaf gathered (all ranks call) and on the host."""
+    return _tree.map(lambda x: x.detach().cpu(), gather_tree(tree))
+
+
+def local_matches(tree, full_tree) -> bool:
+    """Each DTensor leaf's local shard equals its slice of the full tree."""
+    ok = True
+    for x, f in zip(_tree.leaves(tree), _tree.leaves(full_tree)):
+        sl, dm = f, x.device_mesh
+        coord = dm.get_coordinate()
+        for j, pl in enumerate(x.placements):
+            if pl.is_shard():
+                sl = sl.chunk(dm.size(j), dim=pl.dim)[coord[j]]
+        ok &= torch.equal(x.to_local(), sl)
+    return ok
+
+
+def placed_as(got, want) -> bool:
+    """``got`` and ``want`` DTensors of one layout and equal shards."""
+    return (tuple(got.placements) == tuple(want.placements)
+            and torch.equal(got.to_local(), want.to_local()))
+
+
+def sharder_checks(mesh, plan) -> dict:
+    """``Sharder`` and ``constrain`` on a (2, 2, 2) mesh: a DTensor of
+    another layout comes out of each laid out by the plan's spec, every
+    shard its slice; so does a plain leaf (the full value, equal on every
+    rank) out of ``Sharder``, while ``constrain``, which has no mesh to
+    place it on, raises."""
+    g = torch.Generator().manual_seed(3)
+    full = {"w": torch.randn(8, 12, generator=g),
+            "x": torch.randn(8, 3, 4, generator=g)}
+    axes = {"w": ("embed", "mlp"), "x": ("batch", None, "heads")}
+    want = {k: place(v, Sharding(mesh, plan.spec(axes[k], tuple(v.shape))))
+            for k, v in full.items()}
+    other = {k: place(v, Sharding(mesh, ("model",)))
+             for k, v in full.items()}
+    sharder = Sharder(plan, mesh)
+    out = {"specs": {k: [list(e) if isinstance(e, tuple) else e
+                         for e in plan.spec(axes[k], tuple(v.shape))]
+                     for k, v in full.items()}}
+    for name, tree in (("plain", full), ("dtensor", other)):
+        outs = [{k: sharder(v, axes[k]) for k, v in tree.items()}]
+        if name == "dtensor":
+            outs.append(constrain(tree, plan, axes))
+        out[name] = all(
+            placed_as(t[k], want[k]) and local_matches([t[k]], [full[k]])
+            for t in outs for k in full)
+    try:
+        constrain(full, plan, axes)
+    except ValueError as e:
+        out["constrain_plain_raised"] = str(e)
+    return out
+
+
+def recording_gathers(log: list):
+    """Wrap ``torch.distributed.all_gather`` to note each payload's dtype
+    and group size; -> the original, to put back."""
+    orig = torch.distributed.all_gather
+
+    def all_gather(parts, tensor, group=None, **kw):
+        log.append((str(tensor.dtype), len(parts)))
+        return orig(parts, tensor, group=group, **kw)
+
+    torch.distributed.all_gather = all_gather
+    return orig
+
+
+def pods_scenario(out: Path, rank: int, checks: dict) -> None:
+    mp = twin()
+    # -- placements: every arch's smoke tree on the multi-pod plan ---------
+    mcfg = MeshConfig((2, 2, 2), POD_AXES)
+    mesh = make_mesh(mcfg, "cpu")
+    plan = MeshPlan(mcfg)
+    shapes = {}
+    for arch in ARCH_ORDER:
+        model = build_model(smoke_config(arch), device="meta")
+        sh = plan.tree_shardings(mesh, model.param_axes(),
+                                 model.param_shapes())
+        shapes[arch] = [list(place(torch.zeros(l.shape), s).to_local().shape)
+                        for l, s in zip(_tree.leaves(model.param_shapes()),
+                                        _tree.leaves(sh))]
+    checks["shard_shapes"] = shapes
+    checks["sharder"] = sharder_checks(mesh, plan)
+
+    # -- the twin's FL round, pods on separate ranks ----------------------
+    cfg = f32_smoke("qwen3-8b")
+    params = torch.load(out / "params.pt")
+    bundle = mp.round_bundle(cfg, "cpu")
+    checks["mesh"] = (list(mp.mesh_shape(_dist.world_size()))
+                      if bundle.in_placements[0] is not None else None)
+    stacked = stack_pods(params, mp.N_PODS)
+    opt = stack_pods(adamw_init(params, mp.TRAIN), mp.N_PODS)
+    anchor, rng = params, np.random.default_rng(0)
+    exchange_exact, shards_ok, gathers = True, True, []
+    for rnd in range(ROUNDS):
+        batches = mp.round_batches(rng, cfg, "cpu")
+        start = (host(stacked), host(opt), host(anchor))
+        stacked, opt, loss = bundle.fn.local_steps(stacked, opt, batches,
+                                                   rnd * mp.K)
+        pre, a0 = host(stacked), host(anchor)
+        orig = recording_gathers(gathers)
+        try:
+            stacked, anchor = bundle.fn.exchange(anchor, stacked)
+        finally:
+            torch.distributed.all_gather = orig
+        got = host(anchor)
+        for a, s, g in zip(_tree.leaves(a0), _tree.leaves(pre),
+                           _tree.leaves(got)):
+            want = (a.float() + crosspod_mean(a, s, "int8")).to(a.dtype)
+            exchange_exact &= torch.equal(g, want)
+        shards_ok &= local_matches(anchor, got) and local_matches(
+            stacked, host(stacked)) and local_matches(opt.m, host(opt.m))
+        end_opt = host(opt)
+        if rank == 0:
+            torch.save({"start": start, "loss": float(loss), "anchor": got,
+                        "pre": pre, "opt": end_opt,
+                        "batches": {k: v.cpu() for k, v in batches.items()}},
+                       out / f"round{rnd}.pt")
+    # the f32 exchange of the last round's pods: gathered over pod, bit for
+    # bit the one-device mean of the gathered deltas
+    f32_exact = True
+    for a_full, s_full, sh_a, sh_s in zip(
+            _tree.leaves(a0), _tree.leaves(pre),
+            _tree.leaves(bundle.in_placements[2]),
+            _tree.leaves(bundle.in_placements[0])):
+        a_l, s_l = place(a_full, sh_a).to_local(), place(s_full,
+                                                         sh_s).to_local()
+        got_mean = crosspod_mean(
+            a_l, s_l, "none", n_pods=mp.N_PODS,
+            pod_group=mesh.device_mesh.get_group("pod"),
+            scale_group=torch.distributed.group.WORLD)
+        want = place(crosspod_mean(a_full, s_full, "none"), sh_a).to_local()
+        f32_exact &= torch.equal(got_mean, want)
+    checks["f32_exchange_exact"] = f32_exact
+    checks["exchange_exact"] = exchange_exact
+    checks["shards_match_gathered"] = shards_ok
+    checks["exchange_gathers"] = sorted(set(map(tuple, gathers)))
+    halves = host((stacked, opt, anchor))
+
+    # the twin's own run_rounds: the same rounds, as one call each
+    losses, s2, o2, a2 = mp.run_rounds(ROUNDS, device="cpu", params=params,
+                                       cfg=cfg)
+    whole = host((s2, o2, a2))
+    checks["run_rounds_equal_halves"] = all(
+        torch.equal(a, b) for a, b in zip(_tree.leaves(halves),
+                                          _tree.leaves(whole)))
+    checks["run_rounds_losses"] = losses
+
+    # -- a checkpoint across the ranks, restored onto other placements ----
+    tree = (s2, o2, a2)
+    save_checkpoint(str(out / "ckpt"), 1, tree)
+    if rank == 0:
+        torch.save(whole, out / "ckpt_tree.pt")
+    one = load_checkpoint(str(out / "ckpt"), whole, device="cpu")[0]
+    checks["restored_on_one_device"] = all(
+        torch.equal(a, b) for a, b in zip(_tree.leaves(one),
+                                          _tree.leaves(whole)))
+    mesh42 = make_mesh(MeshConfig((4, 2), ("data", "model")), "cpu")
+    model = build_model(cfg, device="meta")
+    new = MeshPlan(MeshConfig((4, 2), ("data", "model"))).tree_shardings(
+        mesh42, model.param_axes(), model.param_shapes())
+    repl = _tree.map(lambda x: Sharding(mesh42, ()), whole[:2])
+    restored = load_checkpoint(str(out / "ckpt"), whole,
+                               shardings=repl + (new,))[0]
+    checks["restored_placements"] = [
+        [str(p) for p in l.placements] for l in _tree.leaves(restored[2])]
+    checks["restored_shards_match"] = local_matches(restored[2], whole[2]) \
+        and local_matches(restored[1].m, whole[1].m)
+    mgr = CheckpointManager(str(out / "managed"), keep=1)
+    mgr.save(2, tree)
+    again, step, _ = mgr.restore(whole, shardings=repl + (new,))
+    checks["manager_restore"] = step == 2 and local_matches(
+        again[2], whole[2]) and all(torch.equal(a, b) for a, b in zip(
+            _tree.leaves(host(again)), _tree.leaves(whole)))
+
+    # -- the twin as launched: its own prints and asserts ------------------
+    checks["twin_main"] = mp.main(["--device", "cpu"])
+
+    # -- an MoE round whose pod batch would split a routing group ----------
+    try:
+        bundle_for("fl_round", f32_smoke(MOE), ShapeConfig("fl", SEQ, 4,
+                                                           "train"),
+                   mesh, mcfg, TrainConfig())
+    except ValueError as e:
+        checks["moe_fl_raised"] = str(e)
+
+
+def train_steps(out: Path, arch: str, seq: int, mbs: int, mesh, mcfg):
+    """``STEPS`` steps of ``arch``'s train step on ``mesh`` from the test's
+    parameters and batches -> (bundle, params, opt state, [metrics])."""
+    params = torch.load(out / f"params_{arch}.pt")
+    batches = np.load(out / f"batches_{arch}.npz")
+    tcfg = TrainConfig(microbatches=mbs, **TRAIN)
+    bundle = bundle_for("train", f32_smoke(arch),
+                        ShapeConfig("t", seq, BATCH, "train"), mesh, mcfg,
+                        tcfg)
+    p, o = params, adamw_init(params, tcfg)
+    metrics = []
+    for step in range(STEPS):
+        batch = {k[len(f"{step}/"):]: torch.from_numpy(v) for k, v in
+                 batches.items() if k.startswith(f"{step}/")}
+        p, o, m = bundle.fn(p, o, batch, step)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return bundle, p, o, metrics
+
+
+def train_scenario(out: Path, rank: int, checks: dict) -> None:
+    cfg = f32_smoke("qwen3-8b")
+    params = torch.load(out / "params_qwen3-8b.pt")
+    mcfg = MeshConfig((2, 2), ("data", "model"))
+    mesh = make_mesh(mcfg, "cpu")
+    shards_ok = True
+    for name, arch, seq, mbs in (("mb1", "qwen3-8b", SEQ, 1),
+                                 ("mb2", "qwen3-8b", SEQ, 2),
+                                 ("moe", MOE, MOE_SEQ, 1)):
+        bundle, p, o, metrics = train_steps(out, arch, seq, mbs, mesh, mcfg)
+        gp, go = host(p), host(o)
+        shards_ok &= local_matches(p, gp) and local_matches(o.v, go.v)
+        if name == "mb1":
+            checks["local_shapes"] = [list(l.to_local().shape)
+                                      for l in _tree.leaves(p)]
+            qwen = bundle
+        if rank == 0:
+            torch.save({"params": gp, "opt": go, "metrics": metrics},
+                       out / f"train_{name}.pt")
+    checks["shards_match_gathered"] = shards_ok
+    bundle = qwen
+
+    # -- SGD and the global norm on DTensor leaves ----------------------------
+    g = torch.Generator().manual_seed(5)
+    grads = _tree.map(lambda x: torch.randn(x.shape, generator=g), params)
+    sh = bundle.in_placements[0]
+    sgd_cfg = TrainConfig(grad_clip=1e6, **TRAIN)  # a norm, no clipping
+    state = sgd_init(params, sgd_cfg)
+    state = state._replace(m=_tree.map(lambda x: torch.randn(
+        x.shape, generator=g), params))
+    lr = torch.tensor(1e-2)
+    want_p, want_s, want_n = sgd_update(grads, state, params, lr, sgd_cfg)
+    got_p, got_s, got_n = sgd_update(
+        place_tree(grads, sh), state._replace(m=place_tree(state.m, sh)),
+        place_tree(params, sh), lr, sgd_cfg)
+    checks["sgd_exact"] = all(torch.equal(a, b) for a, b in zip(
+        _tree.leaves(host((got_p, got_s.m))), _tree.leaves((want_p,
+                                                            want_s.m))))
+    checks["sgd_count"] = int(got_s.count)
+    checks["gnorm"] = [float(got_n), float(want_n)]
+
+    # -- no quiet fallback --------------------------------------------------
+    raised = {}
+
+    def expect(name, exc, fn):
+        try:
+            fn()
+        except exc as e:
+            raised[name] = str(e)
+        else:
+            raised[name] = None
+
+    expect("world_size", ValueError,
+           lambda: make_mesh(MeshConfig((2, 2, 2), POD_AXES), "cpu"))
+    expect("cuda_on_gloo", RuntimeError,
+           lambda: make_mesh(mcfg, "cuda"))
+    expect("init_cuda_on_gloo", RuntimeError, lambda: _dist.init("cuda"))
+    for kind in ("prefill", "decode"):
+        expect(kind, NotImplementedError, lambda: bundle_for(
+            kind, cfg, ShapeConfig("t", SEQ, BATCH, kind), mesh, mcfg))
+    # MoE routing groups of the whole batch that a rank's shard would cut
+    moe = f32_smoke(MOE)
+    expect("moe_seq", ValueError, lambda: bundle_for(
+        "train", moe, ShapeConfig("t", SEQ, BATCH, "train"), mesh, mcfg,
+        TrainConfig(**TRAIN)))
+    expect("moe_microbatches", ValueError, lambda: bundle_for(
+        "train", moe, ShapeConfig("t", MOE_SEQ, BATCH, "train"), mesh, mcfg,
+        TrainConfig(microbatches=2, **TRAIN)))
+    checks["raised"] = raised
+
+
+SCENARIOS = {"pods": pods_scenario, "train": train_scenario}
+
+
+def main(argv) -> int:
+    scenario, rank, world, init_file, out = argv
+    rank, world, out = int(rank), int(world), Path(out)
+    checks = {"rank": rank, "world": world}
+    try:
+        _dist.init("cpu", rank=rank, world_size=world, init_file=init_file)
+        checks["backend"] = torch.distributed.get_backend()
+        SCENARIOS[scenario](out, rank, checks)
+        checks["ok"] = True
+    except Exception:  # the test reads it; the group is torn down below
+        checks["ok"] = False
+        checks["error"] = traceback.format_exc()
+    finally:
+        (out / f"checks_{rank}.json").write_text(json.dumps(checks))
+        _dist.shutdown()
+    return 0 if checks["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
