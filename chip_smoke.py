@@ -155,7 +155,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    member); world size, backend, ms, collectives and their bytes, the
    exchange's int8 against f32 bytes and peak memory printed; with 2 or
    more cards, granite-moe's smoke round with the pods on separate ranks
-   against the stacked round; the six kernels' launch counts asserted 0.
+   against the stacked round; the six kernels' launch counts asserted 0;
+18. tensor-parallel compute over ``model`` (the transformer family's split
+   matmuls, vocab-parallel loss, experts over ``expert``, flash-decode
+   over the cache's ``seq_kv``), over a process group of one rank a card:
+   at world size 1 (a) qwen3-8b at full width in bf16, prefill of 8 x 32,
+   then 32 + 16 decode steps through ``make_prefill_step`` /
+   ``make_decode_step`` on a (1, 1) ``DeviceMesh``, every logit and token
+   bit for bit the one-device steps', ms per generated step, collectives
+   and peak memory printed; (b) granite-moe's full-width train step
+   through the tensor-parallel code bit for bit the one-device step; with
+   2 or more cards (c) qwen3-8b at full width on (1, n), one rank a card:
+   one AdamW train step from the drawn parameters, then decode over world
+   size 1's tokens, every step's logits within phase 14's bf16 bar of
+   world size 1's, each rank's step ms, peak memory and collectives
+   printed (on one card, a line says no cross-card run took place); the
+   six kernels' launch counts asserted 0.
 
 The three FedAvg kernels flush subnormals as XLA does on the CPU and sum
 the clients in order, so each is held bit for bit against its plain
@@ -3446,14 +3461,17 @@ _dist.shutdown()
 
 @contextlib.contextmanager
 def recording_collectives(log: list):
-    """``torch.distributed``'s all_reduce and all_gather, each call noted
-    as (name, dtype, payload bytes a rank sends)."""
+    """``torch.distributed``'s all_reduce, all_gather,
+    all_gather_into_tensor and reduce_scatter_tensor, each call noted as
+    (name, dtype, payload bytes a rank sends)."""
     import torch.distributed as dist
-    orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+    orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather",
+                                          "all_gather_into_tensor",
+                                          "reduce_scatter_tensor")}
 
     def wrap(name):
         def call(*args, **kw):
-            t = args[1] if name == "all_gather" else args[0]
+            t = args[1] if name != "all_reduce" else args[0]
             log.append((name, str(t.dtype), t.numel() * t.element_size()))
             return orig[name](*args, **kw)
         return call
@@ -3726,6 +3744,440 @@ def multi_device_path(card: str, device) -> None:
             "takes one rank a card)")
 
 
+# -- phase 18: tensor-parallel compute over model ---------------------------
+# the transformer family's train step, prefill and decode through the
+# tensor-parallel code (sharding/tensor_parallel.py): at world size 1
+# every split is whole and every collective a one-rank call, so each is
+# held bit for bit against the one-device code; with 2 or more cards,
+# qwen3-8b at full width on (1, n), one rank a card
+TP_SERVE_ARCH = "qwen3-8b"  # phase 14's width
+TP_TRAIN_ARCH = DIST_ARCH  # phase 17 (b)'s step
+TP_SEED = 18
+TP_TRAIN_TIMED = 3  # phase 18 (b)'s timed steps of each variant
+# one rank of the cross-card run: TP_SERVE_ARCH at full width on (1,
+# world): one train step from the drawn parameters, then the decode steps
+# on the tokens world size 1 took; each rank writes its readings, rank 0
+# the gathered logits too
+TP_RANK_SCRIPT = """
+import json, sys, time
+import torch
+from repro_torch import _dist
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+from repro_torch.data import lm_batch_iterator
+from repro_torch.launch import train as lt
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.step_builders import bundle_for
+from repro_torch.optim import adamw_init
+from repro_torch.sharding import gather, place_tree
+from chip_smoke import recording_collectives
+arch, rank, world, init, tokens_in, out, smoke, seed = json.loads(sys.argv[1])
+dev = _dist.init("cuda" if torch.cuda.is_available() and not smoke
+                 else "cpu", rank=rank, world_size=world, init_file=init)
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = smoke_config(arch) if smoke else get_config(arch)
+names = ("data", "model")
+mcfg = MeshConfig((1, world), names)
+mesh = make_mesh(mcfg, dev.type)
+cuda = dev.type == "cuda"
+train_calls, calls = [], []
+def sync():
+    if cuda:
+        torch.cuda.synchronize()
+def peak():
+    return torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+tokens = torch.load(tokens_in).to(dev)
+b, total = tokens.shape
+tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=5, total_steps=16)
+tb = bundle_for("train", cfg, ShapeConfig("t", 64, 4, "train"), mesh, mcfg,
+                tcfg)
+g = torch.Generator(device=dev).manual_seed(seed)
+params = place_tree(tb.model.init(g), tb.in_placements[0])
+if cuda:
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+opt = adamw_init(params, tcfg)
+batch = lt.lm_batch(cfg, next(lm_batch_iterator(0, 4, 64, cfg.vocab_size)),
+                    0, dev)
+with recording_collectives(train_calls):
+    sync()
+    t0 = time.perf_counter()
+    _, _, m = tb.fn(params, opt, batch, 0)
+    sync()
+train_ms = (time.perf_counter() - t0) * 1e3
+del opt, _
+train_peak = peak()
+if cuda:
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+db = bundle_for("decode", cfg, ShapeConfig("d", total, b, "decode"), mesh,
+                mcfg)
+cache = db.model.init_cache(b, total)
+logits, step_s = [], []
+with recording_collectives(calls):
+    for pos in range(total):
+        sync()
+        t1 = time.perf_counter()
+        lg, cache = db.fn(params, cache, {"tokens": tokens[:, pos:pos + 1],
+                                          "pos": pos})
+        lg = gather(lg)
+        sync()
+        step_s.append(time.perf_counter() - t1)
+        logits.append(lg.cpu())
+rec = {"rank": rank, "device": str(dev), "loss": float(m["loss"]),
+       "gnorm": float(m["gnorm"]), "train_ms": train_ms,
+       "train_peak_gib": train_peak, "decode_peak_gib": peak(),
+       "decode_ms": sorted(step_s)[len(step_s) // 2] * 1e3,
+       "train_calls": train_calls, "decode_calls": calls,
+       "record": {k: len(v) for k, v in tb.tp_record.items()}}
+torch.save({"rec": rec, "logits": logits if rank == 0 else None},
+           out.format(rank=rank))
+_dist.shutdown()
+"""
+
+
+def tp_record_note(bundle) -> str:
+    rec = bundle.tp_record
+    return (f"{len(rec['split'])} leaves split over model, "
+            f"{len(rec['gathered'])} gathered (rule 1)")
+
+
+def serve_steps(prefill, decode, params, prompts) -> dict:
+    """Prefill ``prompts`` through ``prefill``, then every prompt position
+    through ``decode`` (filling the cache, as ``serve.generate`` does),
+    then SERVE_GEN greedy steps: -> the prefill's logits, every decode
+    step's logits, the tokens fed and the generated steps' ms."""
+    b, plen = prompts.shape
+    last = local(prefill.fn(params, {"tokens": prompts}))
+    cache = decode.model.init_cache(b, plen + SERVE_GEN)
+    logits, step_s, fed = [], [], [prompts]
+    for pos in range(plen + SERVE_GEN):
+        tok = prompts[:, pos:pos + 1] if pos < plen else fed[-1]
+        synchronize()
+        t0 = time.perf_counter()
+        lg, cache = decode.fn(params, cache, {"tokens": tok, "pos": pos})
+        lg = local(lg)
+        nxt = torch.argmax(lg.reshape(b, -1), dim=-1,
+                           keepdim=True).to(torch.int32)
+        synchronize()
+        if pos >= plen:
+            step_s.append(time.perf_counter() - t0)
+        logits.append(lg)
+        if pos >= plen - 1 and pos < plen + SERVE_GEN - 1:
+            fed.append(nxt)
+    return {"prefill": last, "logits": logits,
+            "tokens": torch.cat(fed, dim=1), "step_ms": step_s}
+
+
+def tp_serving(card: str, smi: str, device, join):
+    """Phase 18 (a): TP_SERVE_ARCH at full width in bf16, prefill then
+    the prompt's and SERVE_GEN decode steps through make_prefill_step /
+    make_decode_step, on the one-device mesh and through the
+    tensor-parallel code on the mesh ``join()`` makes (the one-rank
+    group; world size 1), from one state: bit for bit. The one-device
+    steps run first before the group exists, then inside it alternating
+    with the split steps (one-device, split, split, one-device); each run
+    takes the prompt's steps untimed, then SERVE_GEN timed. Phase 14's
+    loop (``serve.generate``) runs before the group and in it too. ->
+    (the tokens fed, for the cross-card run; the mesh)."""
+    cfg = get_config(TP_SERVE_ARCH)
+    plen = SERVE_PROMPT
+    one = Mesh(SMOKE_MESH.axis_names, SMOKE_MESH.shape, device)
+    fresh_peak()
+    g = torch.Generator(device=device).manual_seed(TP_SEED)
+
+    def bundles_on(m):
+        return (bundle_for("prefill", cfg, ShapeConfig(
+            "p", plen, SERVE_REQUESTS, "prefill"), m, SMOKE_MESH),
+            bundle_for("decode", cfg, ShapeConfig(
+                "d", plen + SERVE_GEN, SERVE_REQUESTS, "decode"), m,
+                SMOKE_MESH))
+
+    solo = bundles_on(one)
+    params = solo[0].model.init(g)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS, plen),
+                            generator=g, device=device, dtype=torch.int32)
+    step_s, runs, mesh = {}, [], None
+
+    def generate(label):
+        run = serve.generate(solo[1].model, params, prompts, SERVE_GEN)
+        step_s.setdefault(label, []).extend(run.step_s)
+
+    def bundle_run(label, pb, db):
+        calls, first = [], label not in step_s
+        torch.cuda.reset_peak_memory_stats()
+        with recording_collectives(calls):
+            run = serve_steps(pb, db, params, prompts)
+        runs.append(run)
+        step_s.setdefault(label, []).extend(run["step_ms"])
+        if first and mesh is not None:  # each variant's first in the group
+            ms = statistics.median(run["step_ms"]) * 1e3
+            note = (f"{tp_record_note(pb)}; collectives: "
+                    f"{collective_note(calls)}; "
+                    f"{tp_host_costs(db, params, mesh, calls, plen + SERVE_GEN)}"
+                    f"; " if pb.tp_record else "")
+            log(f"phase 18 (a) {TP_SERVE_ARCH} full width bf16, {label}: "
+                f"{note}{decode_profile(db, params, prompts, ms)}; "
+                f"{memory_note()} ({smi})")
+
+    generate("serve.generate, before the group")
+    bundle_run("one-device, before the group", *solo)
+    mesh = join()
+    split = bundles_on(mesh)
+    for label, bs in (("one-device", solo), ("tensor-parallel", split),
+                      ("tensor-parallel", split), ("one-device", solo)):
+        bundle_run(label, *bs)
+    generate("serve.generate, in the group")
+    for label, t in step_s.items():
+        log(f"phase 18 (a) {TP_SERVE_ARCH}, {label}: prefill of "
+            f"{SERVE_REQUESTS} x {plen}, then {plen} + {SERVE_GEN} decode "
+            f"steps; {statistics.median(t) * 1e3:.3f} ms per generated "
+            f"step (median of {len(t)}; min {min(t) * 1e3:.3f}, max "
+            f"{max(t) * 1e3:.3f}), "
+            f"{SERVE_REQUESTS * len(t) / sum(t):.1f} tokens/s ({smi})")
+    a = runs[0]
+    same = all(bits_equal(b["prefill"], a["prefill"]) and all(
+        bits_equal(x, y) for x, y in zip(b["logits"], a["logits"]))
+        and torch.equal(b["tokens"], a["tokens"]) for b in runs[1:])
+    if not same:
+        raise AssertionError("phase 18 (a): prefill or decode through the "
+                             "tensor-parallel code differs from the "
+                             "one-device steps")
+    log(f"phase 18 (a): the prefill's logits, every decode step's logits "
+        f"and the generated tokens of all {len(runs)} runs bit for bit "
+        f"the first one-device run's (sample "
+        f"{a['tokens'][0, plen:plen + 8].tolist()})")
+    tokens = a["tokens"].cpu()
+    del params, runs, a, solo, split
+    release()
+    return tokens, mesh
+
+
+def tp_host_costs(decode, params, mesh, calls: list, steps: int) -> str:
+    """What the tensor-parallel decode step adds on the host at world size
+    1: laying the parameters out and gathering them for compute (each
+    step does it), and the one-rank collectives at the step's shapes,
+    each timed over 100 calls; -> a note with their sum over a step's
+    calls (``calls``: the run's collectives, over ``steps`` steps)."""
+    from repro_torch.sharding import tensor_parallel as tpar
+    cfg, tp = decode.model.cfg, tpar.model_group(mesh)
+    x = torch.zeros((SERVE_REQUESTS, 1, cfg.d_model), dtype=torch.bfloat16,
+                    device=mesh.device)
+    heads = cfg.num_heads + 2 * cfg.num_kv_heads
+    y = torch.zeros((1, SERVE_REQUESTS, 1, heads, cfg.head_dim),
+                    dtype=torch.bfloat16, device=mesh.device)
+    lay = sb._Compute(decode.model, mesh)
+
+    def layout():
+        lay.placed_params(params, decode.in_placements[0])
+
+    us = {name: time_host(fn, reps=100) * 1e3 for name, fn in (
+        ("layout", layout),
+        ("all_reduce", lambda: tpar.all_reduce_f32(x, tp.group)),
+        ("all_gather", lambda: tpar.gather_from(y, tp, 0)),
+        ("add", lambda: x + x))}
+    n = {k: sum(1 for c in calls if c[0].startswith(k)) / steps
+         for k in ("all_reduce", "all_gather")}
+    total = (us["layout"] + n["all_reduce"] * us["all_reduce"]
+             + n["all_gather"] * us["all_gather"]) / 1e3
+    return (f"host µs: the parameters' layout and gather {us['layout']:.1f}"
+            f" a step, a one-rank all_reduce (f32 round trip) "
+            f"{us['all_reduce']:.1f}, all_gather {us['all_gather']:.1f}, "
+            f"an add {us['add']:.1f}; with {n['all_reduce']:.1f} all_reduce"
+            f" and {n['all_gather']:.1f} all_gather calls a step: "
+            f"{total:.3f} ms a step")
+
+
+def decode_profile(decode, params, prompts, step_ms: float) -> str:
+    """One decode step of ``decode`` (at the prompt's end, on a fresh
+    cache) under ``torch.profiler``: its kernel launches, device ms and
+    their share of ``step_ms``."""
+    b, plen = prompts.shape
+    cache = decode.model.init_cache(b, plen + SERVE_GEN)
+    rows = device_breakdown(lambda: decode.fn(
+        params, cache, {"tokens": prompts[:, -1:], "pos": plen}))
+    busy = sum(r[1] for r in rows) / 1e3
+    del cache
+    return (f"one step under torch.profiler: {sum(r[2] for r in rows):.0f} "
+            f"kernel launches, {busy:.3f} ms of device time, "
+            f"{busy / step_ms:.3f} of the median step")
+
+
+def tp_training(card: str, smi: str, device, mesh) -> None:
+    """Phase 18 (b): TP_TRAIN_ARCH's full-width train step (phase 15 (a)'s
+    shape) on the one-device mesh and through the tensor-parallel code on
+    ``mesh`` (world size 1), from one state: bit for bit. Each variant's
+    first step warms it and is the one compared; then TP_TRAIN_TIMED
+    steps of each from the same state, in the order split, one-device,
+    one-device, split, ..., their median reported."""
+    cfg = get_config(TP_TRAIN_ARCH)
+    shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = train_config(TRAIN_STEPS)
+    one = Mesh(SMOKE_MESH.axis_names, SMOKE_MESH.shape, device)
+    bundles = {name: bundle_for("train", cfg, shape, m, SMOKE_MESH, tcfg)
+               for name, m in (("one-device", one),
+                               ("tensor-parallel", mesh))}
+    fresh_peak()
+    params = bundles["one-device"].model.init(
+        torch.Generator(device=device).manual_seed(TP_SEED))
+    opt = adamw_init(params, tcfg)
+    batch = lt.lm_batch(cfg, next(lm_batch_iterator(
+        0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)), 0, device)
+    out, ms = {}, {name: [] for name in bundles}
+
+    def step(name):
+        with deterministic_algorithms():
+            synchronize()
+            t0 = time.perf_counter()
+            got = bundles[name].fn(params, opt, batch, 0)
+            synchronize()
+        return got, (time.perf_counter() - t0) * 1e3
+
+    for name, b in bundles.items():
+        calls = []
+        with recording_collectives(calls):
+            out[name], warm = step(name)
+        note = (f"; {tp_record_note(b)}" if b.tp_record else "")
+        log(f"phase 18 (b) {TP_TRAIN_ARCH} train step, {name}: {warm:.3f} ms "
+            f"(its first step), loss {float(out[name][2]['loss']):.6f}, "
+            f"gnorm {float(out[name][2]['gnorm']):.6f}{note}; collectives: "
+            f"{collective_note(calls)}; {memory_note()} ({smi})")
+    order = ("tensor-parallel", "one-device", "one-device", "tensor-parallel")
+    for i in range(TP_TRAIN_TIMED):
+        for name in (order[:2] if i % 2 == 0 else order[2:]):
+            ms[name].append(step(name)[1])
+    for name, t in ms.items():
+        log(f"phase 18 (b) {TP_TRAIN_ARCH} train step, {name}: "
+            f"{statistics.median(t):.3f} ms (median of {len(t)} warm steps "
+            f"from one state, the variants alternating: "
+            f"{', '.join(f'{x:.3f}' for x in t)}) ({smi})")
+    (p1, o1, m1), (p2, o2, m2) = out["one-device"], out["tensor-parallel"]
+    same = all(bits_equal(local(y), x) for x, y in zip(
+        _tree.leaves((p1, o1)), _tree.leaves((p2, o2))))
+    same &= all(bits_equal(m2[k], m1[k]) for k in ("loss", "gnorm", "lr"))
+    if not same:
+        raise AssertionError("phase 18 (b): the train step through the "
+                             "tensor-parallel code differs from the "
+                             "one-device step")
+    log("phase 18 (b): parameters, moments, count, loss, gnorm and lr bit "
+        "for bit the one-device step's")
+    del params, opt, out, p1, o1, p2, o2
+    release()
+
+
+def tp_across_cards(card: str, n_cards: int, device, tokens,
+                    smoke: bool = False) -> None:
+    """Phase 18 (c), with 2 or more cards: TP_SERVE_ARCH at full width on
+    (1, n), one rank a card over NCCL: one train step (AdamW from the
+    drawn parameters), then decode over ``tokens`` (world size 1's prompts
+    and generated tokens), every step's logits held against world size
+    1's at SERVE_BAR. ``smoke``: its smoke config (a rehearsal)."""
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tp-")
+    world = n_cards
+    try:
+        tokens_in = os.path.join(tmp, "tokens.pt")
+        torch.save(tokens, tokens_in)
+        out = os.path.join(tmp, "rank{rank}.pt")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            (str(ROOT / "src"), str(ROOT))))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", TP_RANK_SCRIPT, json.dumps(
+                [TP_SERVE_ARCH, r, world, os.path.join(tmp, "init"),
+                 tokens_in, out, smoke, TP_SEED])],
+            env=dict(env, LOCAL_RANK=str(r))) for r in range(world)]
+        try:
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(rcs):
+            raise AssertionError(f"phase 18 (c): the {world} ranks exited "
+                                 f"{rcs}")
+        wall = time.perf_counter() - t0
+        got = [torch.load(out.format(rank=r)) for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for g in got:
+        r = g["rec"]
+        log(f"phase 18 (c) rank {r['rank']} of {world} ({r['device']}, "
+            f"{card}): {TP_SERVE_ARCH} train step {r['train_ms']:.3f} ms "
+            f"(step 0), loss {r['loss']:.6f}, gnorm {r['gnorm']:.6f}, peak "
+            f"{r['train_peak_gib']:.3f} GiB; decode "
+            f"{r['decode_ms']:.3f} ms a step (median of "
+            f"{tokens.shape[1]}), peak {r['decode_peak_gib']:.3f} GiB; "
+            f"leaves {r['record']}; collectives: train "
+            f"{collective_note(r['train_calls'])}, decode "
+            f"{collective_note(r['decode_calls'])}")
+    want = tp_reference_logits(tokens, device, smoke)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got[0]["logits"], want)):
+        err = float((g.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        worst = max(worst, err / top)
+        if not bool(torch.isfinite(g.float()).all()) or err > SERVE_BAR * top:
+            raise AssertionError(f"phase 18 (c): decode step {i} across "
+                                 f"{world} cards {err:.4e} from world size "
+                                 f"1's, of {top:.4f}")
+    log(f"phase 18 (c) across {world} cards ({card}): {wall:.3f} s wall "
+        f"with the ranks' start; every decode step's logits within "
+        f"{worst:.4e} of the largest |logit| of world size 1's (bar "
+        f"{SERVE_BAR})")
+
+
+def tp_reference_logits(tokens, device, smoke: bool) -> list:
+    """Every decode step's logits at world size 1 (the one-device code)
+    over ``tokens``, from the parameters TP_SEED draws."""
+    cfg = smoke_config(TP_SERVE_ARCH) if smoke else get_config(TP_SERVE_ARCH)
+    b, total = tokens.shape
+    one = Mesh(SMOKE_MESH.axis_names, SMOKE_MESH.shape, device)
+    db = bundle_for("decode", cfg, ShapeConfig("d", total, b, "decode"), one,
+                    SMOKE_MESH)
+    params = db.model.init(torch.Generator(device=device).manual_seed(
+        TP_SEED))
+    cache, tokens, out = db.model.init_cache(b, total), tokens.to(device), []
+    for pos in range(total):
+        lg, cache = db.fn(params, cache, {"tokens": tokens[:, pos:pos + 1],
+                                          "pos": pos})
+        out.append(lg.cpu())
+    del params, cache
+    release()
+    return out
+
+
+def tensor_parallel_path(card: str, smi: str, device) -> None:
+    """Phase 18: a process group of one rank on this card for (a) and (b);
+    then, with 2 or more cards, (c)."""
+    import torch.distributed as dist
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tp1-")
+
+    def join():
+        _dist.init(device.type, rank=0, world_size=1,
+                   init_file=os.path.join(tmp, "init"))
+        mesh = make_mesh(SMOKE_MESH, device.type)
+        log(f"phase 18: world size {dist.get_world_size()}, backend "
+            f"{dist.get_backend()}, mesh {mesh.shape} over "
+            f"{mesh.axis_names} on {mesh.device} ({n_cards} card(s), "
+            f"{smi})")
+        return mesh
+
+    try:
+        tokens, mesh = tp_serving(card, smi, device, join)
+        tp_training(card, smi, device, mesh)
+    finally:
+        _dist.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if n_cards >= 2:
+        tp_across_cards(card, n_cards, device, tokens)
+    else:
+        log("phase 18 (c): one card, so no cross-card run took place (NCCL "
+            "takes one rank a card): the tensor-parallel code ran at world "
+            "size 1 only")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3805,6 +4257,14 @@ def main() -> int:
         raise AssertionError("the multi-device path launched a FedAvg, "
                              "quantize or top-k kernel")
     phase_done("17 (the multi-device path)")
+    zero_launches()
+    tensor_parallel_path(card, smi, device)
+    counts = launches()
+    log(f"phase 18 launches of the six kernels: {counts}")
+    if any(counts.values()):
+        raise AssertionError("the tensor-parallel path launched a FedAvg, "
+                             "quantize or top-k kernel")
+    phase_done("18 (tensor-parallel compute over model)")
 
     # launches: over the main paths each kernel is on, each path run with
     # the counts at 0 (fedavg_reduce: the sync rounds, the event runs, the

@@ -10,15 +10,23 @@ tensors and its shardings fields hold the plan's partition specs (tuples,
 
 On a mesh over a process group (``make_mesh`` inside one), ``fn`` lays
 its arguments out as ``in_placements`` says (the plan on the real mesh:
-parameters and moments FSDP over ``data``, TP storage over ``model``, the
-batch over the batch axes), as the reference's ``jit`` does with its
-``in_shardings``, and returns DTensors. Each rank gathers the parameters,
-takes the forward and backward of its batch shard whole (the matmuls are
-not split over ``model``: ROADMAP A, item 18), averages the gradient
-over the batch axes in f32 and keeps its shard of it, and steps its
-shards of the parameters and moments. On one device the same code runs
-with no collective and places nothing. A batch shard whose MoE tokens
-would fall into other routing groups than the whole batch's raises.
+parameters and moments FSDP over ``data``, tensor-parallel over
+``model``, the batch over the batch axes, the decode cache's ``seq_kv``
+over ``model``), as the reference's ``jit`` does with its
+``in_shardings``, and returns DTensors laid out as its
+``out_shardings``. Each rank gathers the parameters over the FSDP axes
+only and computes with its ``model`` shards (the transformer family,
+``sharding/tensor_parallel.py``: split matmuls, the vocab-parallel loss,
+experts over ``expert``, flash-decode over the cache), as GSPMD
+partitions the reference's steps; a leaf the model runs whole
+(``tp_whole``: rule 1) is gathered over ``model`` too, and so is every
+leaf of the recurrent families, which compute whole (their ``ssm_inner``
+splits are ROADMAP A, item 20, and so are their prefill and decode on a
+mesh). The train step's gradient, each rank's shard of it, is averaged
+over the batch axes in f32: reduce-scattered over a leaf's FSDP dim,
+all-reduced over the rest. On one device the same code runs with no
+collective and places nothing. A batch shard whose MoE tokens would fall
+into other routing groups than the whole batch's raises.
 
 Gradients come from ``torch.autograd.grad`` over the parameter leaves.
 The train step's gradient accumulation keeps the reference's arithmetic
@@ -43,15 +51,18 @@ from repro_torch.models import build_model
 from repro_torch.optim.optimizers import (OptState, adamw_init, adamw_update,
                                           opt_state_axes)
 from repro_torch.optim.schedules import cosine_warmup
+from repro_torch.sharding import tensor_parallel as tpar
 from repro_torch.sharding.rules import (MeshPlan, Sharding,
                                         contiguous_stride, gather,
-                                        is_axes_leaf, like, local, place_on,
+                                        is_axes_leaf, like, local, place,
                                         place_tree, placing, spec_axes)
 
 # the next ROADMAP item (A): what a mesh over several ranks does not do yet
-MULTI_DEVICE_SERVE = ("prefill and decode on a mesh of more than one device "
-                      "are not ported yet (ROADMAP A, item 19): serve on one "
-                      "device, or lower on meta for the dry run")
+MULTI_DEVICE_SERVE = ("prefill and decode of the recurrent families (zamba2, "
+                      "xLSTM) on a mesh of more than one device are not "
+                      "ported yet (ROADMAP A, item 20: their ssm_inner "
+                      "splits): serve them on one device, or lower on meta "
+                      "for the dry run")
 
 
 @dataclasses.dataclass
@@ -67,6 +78,10 @@ class StepBundle:
     # Sharding trees of fn's tensor arguments on the real mesh (a None for
     # each on a mesh that places nothing: one device or meta)
     in_placements: Optional[tuple] = None
+    # rule 1 on the real mesh: {"split": [...], "gathered": [...]}, the
+    # paths of the parameter leaves the plan cuts over ``model`` that run
+    # split there, and of those gathered to run whole (None: no group)
+    tp_record: Optional[dict] = None
 
 
 def _model(cfg: ModelConfig, plan: MeshPlan, mesh):
@@ -96,14 +111,16 @@ class _BatchAxes:
     them, in f32. None for either (nothing placed): no ranks."""
 
     def __init__(self, device_mesh, shardings, skip: int = 0):
-        self.groups, self.n = [], 1
+        self.groups, self.names, self.n = [], [], 1
         if device_mesh is None or shardings is None:
             return
         names = tuple(device_mesh.mesh_dim_names)
-        for e in _tree.leaves(shardings)[0].spec[skip:]:
+        specs = [sh.spec[skip:] for sh in _tree.leaves(shardings)]
+        for e in next((sp for sp in specs if sp), ()):
             for j in (names.index(a) for a in spec_axes(e)):
                 if device_mesh.size(j) > 1:
                     self.groups.append(device_mesh.get_group(j))
+                    self.names.append(names[j])
                     self.n *= device_mesh.size(j)
 
     def check_moe_groups(self, cfg: ModelConfig, rows: int, seq: int
@@ -137,38 +154,99 @@ class _BatchAxes:
         return (t32 / self.n).to(t.dtype)
 
 
-def _grads_on_shards(model, params, batch, batch_axes):
-    """-> (loss, gradients laid out as ``params``): ``value_and_grad`` of
-    the gathered parameters on this rank's batch shard, averaged over the
-    batch's ranks, each rank keeping its shard (on one device: the plain
+class _Compute:
+    """How a model computes on a mesh: its ``model`` group (None: none, or
+    a family that computes whole) and, per parameter leaf, whether it
+    keeps its ``model`` shard (it runs split) or is gathered over
+    ``model`` too (``tp_whole``; every leaf of a family with no group)."""
+
+    def __init__(self, model, mesh):
+        self.tp = (tpar.model_group(mesh) if hasattr(model, "tp_whole")
+                   else None)
+        self.keep = ([False] * len(_tree.leaves(model.param_shapes()))
+                     if self.tp is None else
+                     [not w for w in _tree.leaves(model.tp_whole(
+                         self.tp.size))])
+
+    def params(self, leaves) -> list:
+        """Each leaf as this rank computes with it: gathered over every
+        mesh dim but ``model`` where it keeps its shard (every rank
+        calls: the gathers are collectives)."""
+        with torch.no_grad():
+            return [gather(p, keep=(tpar.AXIS,) if k else ())
+                    for p, k in zip(leaves, self.keep)]
+
+    def placed_params(self, params, lay):
+        """``params`` laid out by ``lay`` (None: as they are), as this rank
+        computes with them."""
+        leaves, treedef = _tree.flatten(place_tree(params, lay))
+        return _tree.unflatten(treedef, self.params(leaves))
+
+    def kwargs(self) -> dict:
+        return {} if self.tp is None else {"tp": self.tp}
+
+
+def _grads_on_shards(model, params, batch, batch_axes, compute):
+    """-> (loss, gradients laid out as ``params``): ``value_and_grad`` at
+    the parameters as ``compute`` lays them out for this rank on its batch
+    shard, each leaf's gradient averaged over the batch's ranks down to
+    the rank's shard (``_grad_shard``; on one device: the plain
     ``value_and_grad``)."""
     leaves, treedef = _tree.flatten(params)
-    with torch.no_grad():
-        full = [gather(p) for p in leaves]
-    loss, grads = value_and_grad(model, _tree.unflatten(treedef, full),
-                                 batch)
-    del full
+    run = compute.params(leaves)
+    loss, grads = value_and_grad(model, _tree.unflatten(treedef, run),
+                                 batch, **compute.kwargs())
+    del run
     out = []
     with torch.no_grad():
-        for p, g in zip(leaves, _tree.leaves(grads)):
-            out.append(_shard_as(p, batch_axes.mean(g)))
+        for p, g, k in zip(leaves, _tree.leaves(grads), compute.keep):
+            out.append(like(p, _grad_shard(p, g, batch_axes, k)))
     return batch_axes.mean(loss), _tree.unflatten(treedef, out)
 
 
-def _shard_as(x, full):
-    """``full`` (equal on every rank) cut as the DTensor ``x`` is."""
+def _grad_shard(x, g, batch_axes, keep_model: bool):
+    """This rank's shard of the mean over the batch's ranks of ``g``, the
+    gradient of ``x`` as this rank computed with it, in ``g``'s dtype:
+    over each mesh dim of more than one rank, a batch dim's partial sums
+    are reduce-scattered along the dim it cuts ``x`` on (all-reduced when
+    it cuts none), in f32; a dim the rank computed whole over (``model``
+    for a leaf gathered there) is cut, no communication; a ``model`` shard
+    it kept is its own already."""
     if not isinstance(x, DTensor):
-        return full
-    return place_on(full, x.device_mesh, x.placements)
+        return batch_axes.mean(g)
+    dm, t, summed, cut = x.device_mesh, g.detach(), False, False
+    coord = dm.get_coordinate()
+    for j, name in enumerate(dm.mesh_dim_names):
+        n, pl = dm.size(j), x.placements[j]
+        dim = pl.dim if isinstance(pl, Shard) else None
+        if n == 1 or (keep_model and name == tpar.AXIS):
+            continue
+        if name not in batch_axes.names:
+            if dim is not None:
+                t, cut = t.chunk(n, dim=dim)[coord[j]], True
+            continue
+        if not summed:
+            t, summed = t.to(torch.float32, copy=True), True
+        if dim is None:
+            dist.all_reduce(t, group=dm.get_group(j))
+        else:
+            parts = [c.contiguous() for c in t.chunk(n, dim=dim)]
+            t = torch.empty_like(parts[0])
+            dist.reduce_scatter_tensor(t, torch.cat(parts),
+                                       group=dm.get_group(j))
+    if not summed:  # a cut keeps no view of the whole gradient
+        return t.clone(memory_format=torch.contiguous_format) if cut else t
+    return (t / batch_axes.n).to(g.dtype)
 
 
-def value_and_grad(model, params, batch):
-    """-> (loss, gradient tree) of ``model.loss`` at ``params``; each
-    gradient in its parameter's dtype. A leaf the loss never reads gets
-    zeros, as jax gives."""
+def value_and_grad(model, params, batch, **kw):
+    """-> (loss, gradient tree) of ``model.loss`` at ``params`` (``kw``:
+    ``tp``, the model group the leaves are split over); each gradient in
+    its parameter's dtype. A leaf the loss never reads gets zeros, as jax
+    gives."""
     leaves, treedef = _tree.flatten(params)
     leaves = [l.detach().requires_grad_(True) for l in leaves]
-    loss, _ = model.loss(_tree.unflatten(treedef, leaves), batch)
+    loss, _ = model.loss(_tree.unflatten(treedef, leaves), batch, **kw)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
     return loss.detach(), _tree.unflatten(treedef, list(grads))
@@ -211,9 +289,10 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     batch_axes = _BatchAxes(mesh.device_mesh, placed[2])
     batch_axes.check_moe_groups(
         cfg, shape.global_batch // train_cfg.microbatches, shape.seq_len)
+    compute = _Compute(model, mesh)
 
     def grads_of(params, batch):
-        return _grads_on_shards(model, params, batch, batch_axes)
+        return _grads_on_shards(model, params, batch, batch_axes, compute)
 
     def train_step(params, opt_state, batch, step):
         params, opt_state, batch = (place_tree(t, s) for t, s in zip(
@@ -254,67 +333,161 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                   torch.empty((), dtype=torch.int32, device="meta"))
     return StepBundle(train_step, lower_args, in_shardings, out_shardings,
                       model, plan, {"params": p_shapes, "opt": opt_shapes},
-                      placed)
+                      placed, _tp_record(model, compute, placed[0]))
+
+
+def _tp_record(model, compute, p_lay) -> Optional[dict]:
+    """``StepBundle.tp_record`` from the parameters' Sharding tree."""
+    if compute.tp is None or p_lay is None:
+        return None
+    rec = {"split": [], "gathered": []}
+    for path, sh, keep in zip(_tree_paths(model.param_axes()),
+                              _tree.leaves(p_lay), compute.keep):
+        if any(tpar.AXIS in spec_axes(e) for e in sh.spec):
+            rec["split" if keep else "gathered"].append(path)
+    return rec
+
+
+def _tree_paths(tree, prefix=()):
+    """'/'-joined key paths of a nested dict's leaves, in leaf order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _tree_paths(tree[k], prefix + (k,))]
+    return ["/".join(prefix)]
 
 
 # ---------------------------------------------------------------------------
 # serve steps (prefill forward / single-token decode)
 # ---------------------------------------------------------------------------
 
-def _one_device_serve(mesh) -> None:
-    if placing(mesh) and math.prod(mesh.shape) > 1:
+def _serving(model, mesh) -> "_Compute":
+    """How ``model`` serves on ``mesh``: split over its ``model`` group
+    (the transformer family on a mesh over a process group, of any size),
+    or as on one device. The recurrent families raise on a mesh of more
+    than one device (ROADMAP A, item 20)."""
+    compute = _Compute(model, mesh)
+    if compute.tp is None and placing(mesh) and math.prod(mesh.shape) > 1:
         raise NotImplementedError(MULTI_DEVICE_SERVE)
+    return compute
+
+
+def _place_batch(batch: dict, lay) -> dict:
+    """The batch's tensors laid out by ``lay`` (None: as they are), as
+    this rank's shards; the decode position passes through."""
+    if lay is None:
+        return batch
+    return {k: v if k == "pos" else local(place(v, lay[k]))
+            for k, v in batch.items()}
+
+
+def _placed_out(x: torch.Tensor, sharding: Optional[Sharding], shape):
+    """This rank's ``x`` as its shard of a DTensor of ``shape`` laid out by
+    ``sharding`` (``x`` itself with none); its shape is checked against
+    the layout's."""
+    if sharding is None:
+        return x
+    dm = sharding.mesh.device_mesh
+    want, coord = list(shape), dm.get_coordinate()
+    for j, pl in enumerate(sharding.placements):
+        if isinstance(pl, Shard):
+            want[pl.dim] //= dm.size(j)
+    if list(x.shape) != want:
+        raise AssertionError(f"a shard of {tuple(x.shape)} where the "
+                             f"layout {sharding.spec} of {tuple(shape)} on "
+                             f"rank {coord} holds {tuple(want)}")
+    return DTensor.from_local(x.contiguous(), dm, sharding.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                       mesh_cfg: MeshConfig):
-    _one_device_serve(mesh)
+    """The forward of a batch of prompts -> the last position's logits. On
+    a mesh over a process group they come back laid out as the reference's
+    ``out_shardings``, ``("batch", "vocab")``."""
     plan = MeshPlan(mesh_cfg)
     model = _model(cfg, plan, mesh)
+    compute = _serving(model, mesh)
     p_shapes, p_axes = model.param_shapes(), model.param_axes()
     in_specs, in_axes = model.input_specs(shape)
+    out_axes = ("batch", "vocab")
+    out_shape = (shape.global_batch, cfg.vocab_size)
+    out_sh = plan.spec(out_axes, out_shape)
+    *placed, out_lay = _shardings(mesh, mesh_cfg, (
+        (p_axes, p_shapes), (in_axes, in_specs),
+        (out_axes, torch.empty(out_shape, device="meta"))))
+    placed = tuple(placed)
+    _BatchAxes(mesh.device_mesh, placed[1]).check_moe_groups(
+        cfg, shape.global_batch, shape.seq_len)
 
     def prefill_step(params, batch):
+        run = compute.placed_params(params, placed[0])
         with torch.no_grad():
-            logits, _ = model.forward(params, batch)
+            logits, _ = model.forward(run, _place_batch(batch, placed[1]),
+                                      **compute.kwargs())
         # serving returns only the last-position logits
-        return logits[:, -1]
+        return _placed_out(logits[:, -1], out_lay, out_shape)
 
     p_shard = plan.tree_specs(p_axes, p_shapes)
     b_shard = plan.tree_specs(in_axes, in_specs)
-    out_sh = plan.spec(("batch", "vocab"),
-                       (shape.global_batch, cfg.vocab_size))
     return StepBundle(prefill_step, (p_shapes, in_specs),
                       (p_shard, b_shard), out_sh, model, plan,
-                      {"params": p_shapes})
+                      {"params": p_shapes}, placed,
+                      _tp_record(model, compute, placed[0]))
 
 
 def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                      mesh_cfg: MeshConfig):
-    """One new token against a seq_len KV cache (decode_* cells)."""
-    _one_device_serve(mesh)
+    """One new token against a seq_len KV cache (decode_* cells). On a mesh
+    over a process group the cache is laid out by ``cache_axes`` (its
+    ``seq_kv`` over ``model``: flash-decode), and the logits come back as
+    the reference's ``out_shardings``, ``("batch", None, "vocab")``."""
     plan = MeshPlan(mesh_cfg)
     model = _model(cfg, plan, mesh)
+    compute = _serving(model, mesh)
     p_shapes, p_axes = model.param_shapes(), model.param_axes()
     in_specs, in_axes = model.input_specs(shape)
     cache_spec = model.cache_spec(shape.global_batch, shape.seq_len)
     cache_axes = model.cache_axes()
+    logits_axes = ("batch", None, "vocab")
+    logits_shape = (shape.global_batch, 1, cfg.vocab_size)
+    kv_axes = ("layers", "batch", "seq_kv")  # where the cache's seq lies
+    *placed, out_lay, kv = _shardings(mesh, mesh_cfg, (
+        (p_axes, p_shapes), (cache_axes, cache_spec), (in_axes, in_specs),
+        (logits_axes, torch.empty(logits_shape, device="meta")),
+        (kv_axes, torch.empty((1, shape.global_batch, shape.seq_len),
+                              device="meta"))))
+    placed = tuple(placed)
+    _BatchAxes(mesh.device_mesh, placed[2]).check_moe_groups(
+        cfg, shape.global_batch, 1)
+    kw = compute.kwargs()
+    if compute.tp is not None:
+        kw["tp"] = dataclasses.replace(
+            compute.tp, cache_split=any(tpar.AXIS in spec_axes(e)
+                                        for e in kv.spec))
 
     def decode_step(params, cache, batch):
         """-> (logits, cache). The model's decode step writes the cache in
         place, so this step consumes ``cache`` and returns that same
-        object, updated (the reference returns a new one)."""
+        object, updated (the reference returns a new one); on a mesh, the
+        cache laid out by ``in_placements`` (the same DTensors when they
+        are laid out so already)."""
+        run = compute.placed_params(params, placed[0])
+        cache = place_tree(cache, placed[1])
         with torch.no_grad():
-            return model.decode_step(params, cache, batch)
+            logits, _ = model.decode_step(run, _tree.map(local, cache),
+                                          _place_batch(batch, placed[2]),
+                                          **kw)
+        return _placed_out(logits, out_lay, logits_shape), cache
 
     p_shard = plan.tree_specs(p_axes, p_shapes)
     c_shard = plan.tree_specs(cache_axes, cache_spec)
     b_shard = plan.tree_specs(in_axes, in_specs)
-    logit_sh = plan.spec(("batch", None, "vocab"),
-                         (shape.global_batch, 1, cfg.vocab_size))
+    logit_sh = plan.spec(logits_axes, logits_shape)
     return StepBundle(decode_step, (p_shapes, cache_spec, in_specs),
                       (p_shard, c_shard, b_shard), (logit_sh, c_shard),
-                      model, plan, {"params": p_shapes, "cache": cache_spec})
+                      model, plan, {"params": p_shapes, "cache": cache_spec},
+                      placed, _tp_record(model, compute, placed[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +607,7 @@ def make_fl_round_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     batch_axes = _BatchAxes(pods.sub_mesh, bs_lay, skip=1)
     batch_axes.check_moe_groups(cfg, shape.global_batch // n_pods,
                                 shape.seq_len)
+    compute = _Compute(model, mesh)
 
     def pod_slice(tree, i):
         return _tree.map(lambda x: pods.slice(x, i), tree)
@@ -454,7 +628,8 @@ def make_fl_round_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
             losses = []
             for k in range(local_steps):
                 mb = {key: local(v)[i, k] for key, v in batches.items()}
-                loss, g = _grads_on_shards(model, p, mb, batch_axes)
+                loss, g = _grads_on_shards(model, p, mb, batch_axes,
+                                           compute)
                 p, o, _ = adamw_update(g, o, p, lr, train_cfg, inplace=True)
                 losses.append(loss)
                 del g

@@ -12,6 +12,17 @@ on it gives the axes tree. ``flash_attention`` is plain jnp in the
 reference, not a Pallas kernel, so here it is plain torch with the same
 chunking, mask value and merge. Decode writes its cache in place (``attn_decode``),
 where the reference returns an updated copy.
+
+Each apply function takes an optional ``tp``, the ``model`` group of a
+mesh (``sharding/tensor_parallel.py``); without one it is the one-device
+code. With one, its leaves are this rank's shards over ``model`` where the
+plan splits them (whole elsewhere, gathered by the step layer), and it
+computes what GSPMD partitions in the reference: q/k/v and the MLP's
+first matrices column-parallel, ``wo`` and ``w_down`` row-parallel, the
+MoE's experts over ``expert``, the embedding, the head and the loss over
+``vocab``, and decode over the cache's ``seq_kv`` (flash-decode). Heads
+are never cut mid-head: an attention block whose q heads do not divide
+over the group runs whole.
 """
 from __future__ import annotations
 
@@ -24,6 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from repro_torch.sharding.tensor_parallel import (copy_to, gather_from,
+                                                  reduce_from, split_over,
+                                                  splits, vocab_logsumexp)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -236,12 +251,18 @@ def flash_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
     return out.reshape(b, sq, hq, d)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len):
+def decode_attention(q, k_cache, v_cache, cache_len, tp=None):
     """Single-token attention against a preallocated cache.
 
     q: (b, 1, hq, d); caches: (b, smax, hkv, d); cache_len: int (number
     of valid positions, including the token just written). Scores and
     products in f32, as the reference's ``preferred_element_type``.
+
+    With ``tp`` whose ``cache_split`` is set, the caches hold this rank's
+    ``smax`` positions of the whole ``smax * tp.size`` (flash-decode): the
+    rank attends over them for every head, and the partials (max, sum of
+    exps, output) of every rank are all-gathered and merged in rank order
+    (``_merge_ranks``). Over one rank that is the one-device code.
     """
     b, _, hq, d = q.shape
     _, smax, hkv, _ = k_cache.shape
@@ -249,13 +270,41 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     scale = 1.0 / math.sqrt(d)
     qh = q.reshape(b, hkv, g, d)
     s = torch.einsum("bhgd,bkhd->bhgk", qh.float(), k_cache.float()) * scale
-    mask = torch.arange(smax, device=q.device)[None, None, None, :] \
-        < cache_len
+    split = tp is not None and tp.cache_split
+    at = torch.arange(smax, device=q.device)
+    if split:
+        at = at + tp.rank * smax  # this rank's positions
+    mask = at[None, None, None, :] < cache_len
     s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
                      v_cache.float())
+    if split:
+        m = torch.amax(s, dim=-1)
+        l = torch.sum(torch.exp(s - m[..., None]), dim=-1)
+        part = torch.cat([m[..., None], l[..., None], o], dim=-1)
+        parts = gather_from(part[None], tp, 0)
+        o = _merge_ranks([(x[..., 0], x[..., 1], x[..., 2:]) for x in parts])
     return o.reshape(b, 1, hq, d).to(v_cache.dtype)
+
+
+def _merge_ranks(parts):
+    """One output from per-rank partials ``(m, l, o)`` in rank order: m, l
+    (b, h, g) the max and the sum of exps of a rank's scores, o (b, h, g,
+    d) its output normalised by l. Merged with ``_merge`` on the
+    unnormalised outputs, then normalised once; one partial is returned
+    as it is."""
+    m, l, o = parts[0]
+    if len(parts) == 1:
+        return o
+
+    def merge_form(m, l, o):  # _merge's (b,h,g,q) stats, (b,q,h,g,d) outs
+        return m[..., None], l[..., None], (o * l[..., None])[:, None]
+
+    M, L, O = merge_form(m, l, o)
+    for part in parts[1:]:
+        M, L, O = _merge(M, L, O, *merge_form(*part))
+    return O[:, 0] / L
 
 
 # ---------------------------------------------------------------------------
@@ -283,39 +332,96 @@ def attn_init(init: Init, cfg, lora_rank: int = 0):
     return p
 
 
-def _proj_qkv(p, x, cfg, lora_scope=None):
-    """q, k, v; with ``lora_scope`` (a function of a LoRA leaf, e.g. one
-    application's slice) each projection adds x @ a @ b."""
-    def mm(name):
-        y = x @ p[name].to(x.dtype)
+def _proj_qkv(p, x, cfg, lora_scope=None, tp=None, *, kv_x=None,
+              every_kv=False):
+    """q, k, v (b, s, heads, hd); with ``lora_scope`` (a function of a LoRA
+    leaf, e.g. one application's slice) each projection adds x @ a @ b.
+    ``kv_x``: the context k and v are taken from (cross-attention; ``x``
+    itself otherwise).
+
+    With ``tp`` (a block that runs split over it), column-parallel: q of
+    this rank's heads, and k, v of its kv heads where they split over the
+    group. ``wk``/``wv`` whole (their heads do not divide over it) are cut
+    to the columns of the kv heads this rank's q heads read, or kept whole
+    with ``every_kv``. The inputs, and whole weights and ``qk_norm`` scales
+    applied to this rank's heads, enter through ``copy_to``."""
+    hd = cfg.head_dim
+    x = copy_to(x, tp)
+    kv_x = x if kv_x is None else copy_to(kv_x, tp)
+    w = {n: p[n] for n in ("wq", "wk", "wv")}
+    if (tp is not None and not every_kv
+            and not splits(tp, w["wk"].shape[-1], cfg.num_kv_heads * hd)):
+        cols = _columns(_kv_heads(cfg, tp, False), hd)
+        for n in ("wk", "wv"):
+            w[n] = copy_to(w[n], tp)[..., cols]
+
+    def mm(inp, name):
+        y = inp @ w[name].to(x.dtype)
         if lora_scope is not None and f"{name}_lora_a" in p:
             a = lora_scope(p[f"{name}_lora_a"]).to(x.dtype)
             bb = lora_scope(p[f"{name}_lora_b"]).to(x.dtype)
-            y = y + (x @ a) @ bb
+            y = y + (inp @ a) @ bb
         return y
 
-    b, s, _ = x.shape
-    hd = cfg.head_dim
-    q = mm("wq").reshape(b, s, cfg.num_heads, hd)
-    k = mm("wk").reshape(b, s, cfg.num_kv_heads, hd)
-    v = mm("wv").reshape(b, s, cfg.num_kv_heads, hd)
+    q = mm(x, "wq").reshape(*x.shape[:2], -1, hd)
+    k = mm(kv_x, "wk").reshape(*kv_x.shape[:2], -1, hd)
+    v = mm(kv_x, "wv").reshape(*kv_x.shape[:2], -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, copy_to(p["q_norm"], tp), cfg.norm_eps)
+        k = rms_norm(k, copy_to(p["k_norm"], tp), cfg.norm_eps)
     return q, k, v
 
 
+def _attn_tp(p, cfg, tp):
+    """The group an attention block runs split over: ``tp`` where its q
+    heads are cut by whole heads, else None. The step layer gathers a
+    block whose ``num_heads`` does not divide over the group, which then
+    runs whole."""
+    return split_over(tp, p["wq"].shape[-1], cfg.num_heads * cfg.head_dim)
+
+
+def _kv_heads(cfg, tp, kv_split: bool):
+    """The kv heads this rank's q heads read, as indices into the whole kv
+    heads: this rank's own when they split over the group; otherwise
+    (``num_kv_heads`` does not divide over it) a slice, when each head it
+    reads serves as many of its q heads, else one kv head per q head."""
+    if kv_split:
+        n = cfg.num_kv_heads // tp.size
+        return slice(tp.rank * n, (tp.rank + 1) * n)
+    hq = cfg.num_heads // tp.size
+    g = cfg.num_heads // cfg.num_kv_heads
+    idx = [(tp.rank * hq + j) // g for j in range(hq)]
+    heads = sorted(set(idx))
+    if idx == [h for h in heads for _ in range(hq // len(heads))]:
+        return slice(heads[0], heads[-1] + 1)
+    return idx
+
+
+def _columns(heads, hd: int):
+    """The projection columns of ``heads`` (a slice or index list)."""
+    if isinstance(heads, slice):
+        return slice(heads.start * hd, heads.stop * hd)
+    return torch.tensor([c for h in heads for c in range(h * hd,
+                                                          (h + 1) * hd)])
+
+
+def _out_proj(p, o, x, tp):
+    """``wo`` of the heads' outputs ``o`` (b, s, heads, hd); with ``tp``
+    (the block runs split) row-parallel, its partial sums reduced."""
+    b, s = o.shape[:2]
+    return reduce_from(o.reshape(b, s, -1) @ p["wo"].to(x.dtype), tp)
+
+
 def attn_apply(p, x, cfg, *, positions, causal=None, block_causal=True,
-               lora_scope=None):
+               lora_scope=None, tp=None):
     causal = cfg.causal if causal is None else causal
-    q, k, v = _proj_qkv(p, x, cfg, lora_scope)
+    tp = _attn_tp(p, cfg, tp)
+    q, k, v = _proj_qkv(p, x, cfg, lora_scope, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=causal, q_chunk=cfg.attn_chunk,
                         kv_chunk=cfg.attn_chunk, block_causal=block_causal)
-    b, s, _, _ = o.shape
-    o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
-    return o @ p["wo"].to(x.dtype)
+    return _out_proj(p, o, x, tp)
 
 
 def attn_prefill(p, x, cfg, *, positions, smax, lora_scope=None):
@@ -333,41 +439,67 @@ def attn_prefill(p, x, cfg, *, positions, smax, lora_scope=None):
     return o @ p["wo"].to(x.dtype), (k_cache, v_cache)
 
 
-def attn_decode(p, x, cache, cfg, *, pos, lora_scope=None):
+def attn_decode(p, x, cache, cfg, *, pos, lora_scope=None, tp=None):
     """x: (b,1,d); cache: dict(k,v) of (b,smax,hkv,hd); pos: int index.
 
     Writes this token's k and v into ``cache`` at ``pos`` in place and
     returns (out, cache). The reference's ``dynamic_update_slice`` clamps
-    a write past smax to the last slot; here it raises ``IndexError``."""
+    a write past smax to the last slot; here it raises ``IndexError``.
+
+    With ``tp``: where the block runs split, q, k, v of this rank's heads,
+    the q heads and the new token's kv heads all-gathered (one token, one
+    call), and this rank's heads through the row-parallel ``wo``. Where
+    the cache's positions are split over the group too
+    (``tp.cache_split``), the rank whose positions hold ``pos`` alone
+    writes them, and the attention is flash-decoded over every rank's
+    positions (``decode_attention``); otherwise every rank writes them."""
     pos = int(pos)
-    q, k, v = _proj_qkv(p, x, cfg, lora_scope)
+    btp = _attn_tp(p, cfg, tp)
+    q, k, v = _proj_qkv(p, x, cfg, lora_scope, btp, every_kv=True)
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
-    o = decode_attention(q, cache["k"], cache["v"], pos + 1)
-    b = x.shape[0]
-    o = o.reshape(b, 1, cfg.num_heads * cfg.head_dim)
-    return o @ p["wo"].to(x.dtype), cache
+    q, k, v = _gather_heads(q, k, v, btp, splits(
+        btp, p["wk"].shape[-1], cfg.num_kv_heads * cfg.head_dim))
+    smax = cache["k"].shape[1]
+    ranks, rank = ((tp.size, tp.rank) if tp is not None and tp.cache_split
+                   else (1, 0))
+    owner, at = divmod(pos, smax)
+    if owner >= ranks:
+        raise IndexError(f"decode position {pos} is past the cache's "
+                         f"{smax * ranks} positions")
+    if owner == rank:
+        cache["k"][:, at] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, at] = v[:, 0].to(cache["v"].dtype)
+    o = decode_attention(q, cache["k"], cache["v"], pos + 1, tp)
+    if btp is not None:
+        n = cfg.num_heads // btp.size
+        o = o[:, :, btp.rank * n:(btp.rank + 1) * n]
+    return _out_proj(p, o, x, btp), cache
 
 
-def cross_attn_apply(p, x, kv_embeds, cfg):
-    """Cross attention onto (b, n_img, d) context (no rope)."""
-    b, s, _ = x.shape
-    hd = cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.num_heads, hd)
-    k = (kv_embeds @ p["wk"].to(x.dtype)).reshape(b, -1, cfg.num_kv_heads,
-                                                  hd)
-    v = (kv_embeds @ p["wv"].to(x.dtype)).reshape(b, -1, cfg.num_kv_heads,
-                                                  hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+def _gather_heads(q, k, v, tp, kv_split: bool):
+    """One token's q (and k, v with ``kv_split``) (b, 1, heads, hd), this
+    rank's heads over ``tp``, all-gathered along the heads in one call,
+    each in rank order; as they are with no group."""
+    if tp is None:
+        return q, k, v
+    parts = [q, k, v] if kv_split else [q]
+    sizes = [t.shape[2] for t in parts]
+    every = gather_from(torch.cat(parts, dim=2)[None], tp, 0)
+    out = [t.movedim(0, 2).flatten(2, 3)
+           for t in every.split(sizes, dim=3)]  # (p,b,1,n,hd) -> (b,1,pn,hd)
+    return tuple(out) if kv_split else (out[0], k, v)
+
+
+def cross_attn_apply(p, x, kv_embeds, cfg, tp=None):
+    """Cross attention onto (b, n_img, d) context (no rope); with ``tp``
+    split as ``attn_apply`` is."""
+    tp = _attn_tp(p, cfg, tp)
+    q, k, v = _proj_qkv(p, x, cfg, tp=tp, kv_x=kv_embeds)
     o = flash_attention(q, k, v, causal=False, q_chunk=cfg.attn_chunk,
                         kv_chunk=cfg.attn_chunk)
-    o = o.reshape(b, s, cfg.num_heads * hd)
-    return o @ p["wo"].to(x.dtype)
+    return _out_proj(p, o, x, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -385,15 +517,19 @@ def mlp_init(init: Init, cfg, d_ff: int):
     return p
 
 
-def mlp_apply(p, x):
+def mlp_apply(p, x, tp=None, d_ff: int = None):
     """SwiGLU with ``w_gate``, else a 2-matrix MLP with ``jax.nn.gelu``'s
-    default, the tanh approximation."""
+    default, the tanh approximation. With ``tp``, an MLP whose hidden
+    dim ``d_ff`` runs split: ``w_gate``/``w_up`` column-parallel, ``w_down``
+    row-parallel."""
+    tp = split_over(tp, p["w_up"].shape[-1], d_ff)
+    x = copy_to(x, tp)
     u = x @ p["w_up"].to(x.dtype)
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * u
     else:
         h = F.gelu(u, approximate="tanh")
-    return h @ p["w_down"].to(x.dtype)
+    return reduce_from(h @ p["w_down"].to(x.dtype), tp)
 
 
 def moe_init(init: Init, cfg):
@@ -413,7 +549,7 @@ def moe_init(init: Init, cfg):
 
 
 def moe_apply(p, x, cfg, *, group_size: int = 2048,
-              capacity_factor: float = 1.25):
+              capacity_factor: float = 1.25, tp=None):
     """GShard-style grouped top-k dispatch through one-hot einsums.
 
     Tokens are split into groups; each group dispatches into per-expert
@@ -423,6 +559,12 @@ def moe_apply(p, x, cfg, *, group_size: int = 2048,
     ``jax.lax.top_k`` does (a stable descending sort). Every expert runs
     over its capacity slots, as in the reference, so the sums run in its
     order. -> (y, the Switch-style load-balancing aux loss).
+
+    With ``tp`` the router is whole on every rank, so routing, capacities
+    and drops are the one-device ones, and so is the aux loss (from the
+    full ``probs``). Each rank runs its experts (``expert`` split over
+    the group; or every expert's share of a split ``mlp`` dim) over their
+    capacity slots; its share of the combine is reduced over the group.
     """
     b, s, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
@@ -460,13 +602,24 @@ def moe_apply(p, x, cfg, *, group_size: int = 2048,
     dispatch = torch.einsum("ngke,ngkc->ngec", onehot, cap_oh)
     combine = torch.einsum("ngke,ngkc,ngk->ngec", onehot, cap_oh, gate_vals)
 
-    xe = torch.einsum("ngec,ngd->necd", dispatch.to(x.dtype), xt)
-    xe = xe.permute(1, 0, 2, 3).reshape(E, n_groups * cap, d)
+    E_here = p["w_gate"].shape[0]
+    by_expert = splits(tp, E_here, E)
+    split = by_expert or splits(tp, p["w_gate"].shape[-1], cfg.d_ff)
+    xe_in = xt
+    if split:
+        first = tp.rank * E_here if by_expert else 0
+        dispatch = dispatch[:, :, first:first + E_here]
+        combine = copy_to(combine, tp)[:, :, first:first + E_here]
+        xe_in = copy_to(xt, tp)
+    xe = torch.einsum("ngec,ngd->necd", dispatch.to(x.dtype), xe_in)
+    xe = xe.permute(1, 0, 2, 3).reshape(E_here, n_groups * cap, d)
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(x.dtype)))
     h = h * torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(x.dtype))
     ye = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(x.dtype))
-    ye = ye.reshape(E, n_groups, cap, d).permute(1, 0, 2, 3)  # (n,E,cap,d)
+    ye = ye.reshape(E_here, n_groups, cap, d).permute(1, 0, 2, 3)
     y = torch.einsum("ngec,necd->ngd", combine.to(x.dtype), ye)
+    if split:
+        y = reduce_from(y, tp)
     y = y.reshape(b, s, d)
 
     # load-balancing auxiliary loss (Switch-style)
@@ -475,7 +628,8 @@ def moe_apply(p, x, cfg, *, group_size: int = 2048,
     aux = torch.mean(torch.sum(me * pe, dim=-1)) / E
 
     if cfg.num_shared_experts and "shared" in p:
-        y = y + mlp_apply(p["shared"], x)
+        y = y + mlp_apply(p["shared"], x, tp,
+                          cfg.d_ff * cfg.num_shared_experts)
     return y, aux
 
 
@@ -496,22 +650,52 @@ def embed_init(init: Init, cfg):
     return p
 
 
-def embed_lookup(p, tokens, cfg, compute_dtype):
-    emb = p["embedding"][tokens.long()].to(compute_dtype)
+def _vocab_rows(ids, n: int, tp):
+    """Token ids as rows of this rank's ``n`` vocabulary rows: -> (row
+    indices, 0 where the id lies outside them; the mask of those inside)."""
+    t = ids.long() - tp.rank * n
+    inside = (t >= 0) & (t < n)
+    return torch.where(inside, t, 0), inside
+
+
+def embed_lookup(p, tokens, cfg, compute_dtype, tp=None):
+    """With ``tp`` and the vocabulary split over it, each rank reads its
+    rows (zero outside them) and the rows are summed over the group."""
+    w = p["embedding"]
+    if splits(tp, w.shape[0], cfg.vocab_size):
+        rows, inside = _vocab_rows(tokens, w.shape[0], tp)
+        emb = reduce_from(torch.where(inside[..., None], w[rows], 0), tp)
+    else:
+        emb = w[tokens.long()]
+    emb = emb.to(compute_dtype)
     return emb * math.sqrt(cfg.d_model) if cfg.tie_embeddings else emb
 
 
-def lm_logits(p, x, cfg):
+def lm_logits(p, x, cfg, tp=None):
+    """With ``tp`` and the vocabulary split over it, column-parallel: the
+    logits of this rank's vocabulary columns."""
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     w = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
+    if splits(tp, w.shape[-1], cfg.vocab_size):
+        x = copy_to(x, tp)
     return x @ w.to(x.dtype)
 
 
-def cross_entropy(logits, targets, *, z_loss: float = 1e-4):
-    """Mean token cross-entropy in fp32 with z-loss regulariser."""
+def cross_entropy(logits, targets, *, z_loss: float = 1e-4, tp=None,
+                  vocab_size: int = None):
+    """Mean token cross-entropy in fp32 with z-loss regulariser. With
+    ``tp`` and logits of ``vocab_size`` split over it (this rank's
+    columns), vocab-parallel: the max, the sum of exps and the target
+    logit are each all-reduced over the group, in f32."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if splits(tp, logits.shape[-1], vocab_size):
+        lse = vocab_logsumexp(logits, tp)
+        cols, inside = _vocab_rows(targets, logits.shape[-1], tp)
+        ll = torch.gather(logits, -1, cols[..., None])[..., 0]
+        ll = reduce_from(torch.where(inside, ll, 0.0), tp)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     loss = torch.mean(lse - ll)
     if z_loss:
         loss = loss + z_loss * torch.mean(torch.square(lse))

@@ -11,7 +11,13 @@ is one leaf with the repeats on its leading axis (``seg0.b0_self.*``), so
 the wire, the codecs and FedAvg see the reference's leaves in its order.
 The reference's ``jax.lax.scan`` over the stacked leaves is a Python loop
 here over the per-repeat slices. ``decode_step`` writes its cache in
-place and returns it. There is no sharding.
+place and returns it.
+
+``forward``, ``loss`` and ``decode_step`` take an optional ``tp``, the
+``model`` group of a mesh (``sharding/tensor_parallel.py``), and the
+parameters as this rank's shards over it (``models/layers.py``);
+``tp_whole`` says which leaves run whole there (rule 1: heads are never
+cut mid-head, the router is whole).
 """
 from __future__ import annotations
 
@@ -103,31 +109,56 @@ class TransformerLM:
                                   for bi, kind in enumerate(kinds)}
         return params
 
+    def tp_whole(self, size: int):
+        """Rule 1 over a ``model`` group of ``size`` ranks, as a tree like
+        the parameters: True for a leaf that runs whole (the step layer
+        gathers it over ``model`` where the plan splits it). Heads are
+        never cut mid-head: every leaf of an attention block whose
+        ``num_heads`` does not divide over the group, and ``wk``/``wv``
+        where ``num_kv_heads`` does not (each rank then takes the kv heads
+        its q heads read); the MoE router, so that every rank routes
+        alike. The rest runs as the plan lays it out."""
+        cfg = self.cfg
+        heads = cfg.num_heads % size != 0
+        kv = cfg.num_kv_heads % size != 0
+
+        def walk(tree, path):
+            if isinstance(tree, dict):
+                return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            block, name = path[-2], path[-1]
+            if block in ("attn", "xattn"):
+                return heads or (kv and name in ("wk", "wv"))
+            return block == "moe" and name == "router"
+
+        return walk(self.param_axes(), ())
+
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def _block_apply(self, kind, p, x, *, positions, image_embeds=None):
+    def _block_apply(self, kind, p, x, *, positions, image_embeds=None,
+                     tp=None):
         """-> (x, aux loss); aux is 0 outside a ``moe`` block."""
         cfg = self.cfg
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if kind == "cross":
-            a = L.cross_attn_apply(p["xattn"], h, image_embeds, cfg)
+            a = L.cross_attn_apply(p["xattn"], h, image_embeds, cfg, tp)
             x = x + torch.tanh(p["xgate"].to(a.dtype)) * a
         else:
             a = L.attn_apply(p["attn"], h, cfg, positions=positions,
-                             block_causal=cfg.block_causal)
+                             block_causal=cfg.block_causal, tp=tp)
             x = x + a
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if kind == "moe":
             y, aux = L.moe_apply(p["moe"], h, cfg,
                                  group_size=cfg.moe_group_size,
-                                 capacity_factor=cfg.capacity_factor)
+                                 capacity_factor=cfg.capacity_factor, tp=tp)
         else:
-            y = L.mlp_apply(p["mlp"], h)
+            y = L.mlp_apply(p["mlp"], h, tp, cfg.d_ff_dense or cfg.d_ff)
         return x + y, aux
 
-    def _stack_apply(self, params, x, *, positions, image_embeds=None):
+    def _stack_apply(self, params, x, *, positions, image_embeds=None,
+                     tp=None):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, (kinds, _) in enumerate(self.segments):
 
@@ -135,7 +166,8 @@ class TransformerLM:
                 for bi, kind in enumerate(_kinds):
                     x, a = self._block_apply(
                         kind, layer_p[f"b{bi}_{kind}"], x,
-                        positions=positions, image_embeds=image_embeds)
+                        positions=positions, image_embeds=image_embeds,
+                        tp=tp)
                     aux = aux + a
                 return x, aux
 
@@ -144,26 +176,29 @@ class TransformerLM:
                 x, aux = body(layer_p, x, aux)
         return x, aux
 
-    def forward(self, params, batch):
-        """-> (logits (b, s, vocab), aux loss)."""
+    def forward(self, params, batch, tp=None):
+        """-> (logits (b, s, vocab), aux loss); with ``tp``, the logits of
+        this rank's vocabulary columns where the vocabulary splits."""
         cfg = self.cfg
         dtype = L.dtype_of(cfg.dtype)
         if cfg.external_embeddings:
             x = batch["embeds"].to(dtype)
         else:
-            x = L.embed_lookup(params["embed"], batch["tokens"], cfg, dtype)
+            x = L.embed_lookup(params["embed"], batch["tokens"], cfg, dtype,
+                               tp)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         img = batch.get("image_embeds")
         if img is not None:
             img = img.to(x.dtype)
         x, aux = self._stack_apply(params, x, positions=positions,
-                                   image_embeds=img)
-        return L.lm_logits(params["embed"], x, cfg), aux
+                                   image_embeds=img, tp=tp)
+        return L.lm_logits(params["embed"], x, cfg, tp), aux
 
-    def loss(self, params, batch):
-        logits, aux = self.forward(params, batch)
-        ce = L.cross_entropy(logits, batch["targets"])
+    def loss(self, params, batch, tp=None):
+        logits, aux = self.forward(params, batch, tp)
+        ce = L.cross_entropy(logits, batch["targets"], tp=tp,
+                             vocab_size=self.cfg.vocab_size)
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "aux": aux}
 
@@ -212,17 +247,20 @@ class TransformerLM:
                                                device=self.device),
                          self.cache_spec(batch_size, max_seq))
 
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch, tp=None):
         """One token: batch = {tokens: (b,1), pos: int, image_embeds?}.
         Returns (logits, cache): the cache is updated in place (the
-        reference returns a new one), so the step consumes it."""
+        reference returns a new one), so the step consumes it. With
+        ``tp``, the cache holds this rank's positions where
+        ``tp.cache_split`` says so."""
         cfg = self.cfg
         pos = int(batch["pos"])
         dtype = L.dtype_of(cfg.dtype)
         if cfg.external_embeddings:
             x = batch["embeds"].to(dtype)
         else:
-            x = L.embed_lookup(params["embed"], batch["tokens"], cfg, dtype)
+            x = L.embed_lookup(params["embed"], batch["tokens"], cfg, dtype,
+                               tp)
         for si, (kinds, _) in enumerate(self.segments):
             for layer_p, layer_c in zip(unstacked(params[f"seg{si}"]),
                                         unstacked(cache[f"seg{si}"])):
@@ -232,21 +270,24 @@ class TransformerLM:
                     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
                     if kind == "cross":
                         # static image kv: attend, no cache update
-                        o = _cross_decode(p["xattn"], h, layer_c[key], cfg)
+                        o = _cross_decode(p["xattn"], h, layer_c[key], cfg,
+                                          tp)
                         x = x + torch.tanh(p["xgate"].to(o.dtype)) * o
                     else:
                         o, _ = L.attn_decode(p["attn"], h, layer_c[key], cfg,
-                                             pos=pos)
+                                             pos=pos, tp=tp)
                         x = x + o
                     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
                     if kind == "moe":
                         y, _ = L.moe_apply(p["moe"], h, cfg,
                                            group_size=cfg.moe_group_size,
-                                           capacity_factor=cfg.capacity_factor)
+                                           capacity_factor=cfg.capacity_factor,
+                                           tp=tp)
                     else:
-                        y = L.mlp_apply(p["mlp"], h)
+                        y = L.mlp_apply(p["mlp"], h, tp,
+                                        cfg.d_ff_dense or cfg.d_ff)
                     x = x + y
-        return L.lm_logits(params["embed"], x, cfg), cache
+        return L.lm_logits(params["embed"], x, cfg, tp), cache
 
     def input_specs(self, shape: ShapeConfig):
         return input_specs(self.cfg, shape)
@@ -287,14 +328,21 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig):
     return specs, axes
 
 
-def _cross_decode(p, x, xcache, cfg: ModelConfig):
-    """Cross-attention for a single token against static image kv."""
+def _cross_decode(p, x, xcache, cfg: ModelConfig, tp=None):
+    """Cross-attention for a single token against static image kv. With
+    ``tp`` and the block split, this rank's q heads attend to the kv heads
+    they read (the image cache is whole on every rank), then the
+    row-parallel ``wo``."""
     b, _, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, 1, cfg.num_heads, hd)
+    tp = L._attn_tp(p, cfg, tp)
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, 1, -1, hd)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
     k, v = xcache["xk"], xcache["xv"]
+    if tp is not None:
+        heads = L._kv_heads(cfg, tp, tp.splits(p["wk"].shape[-1],
+                                               cfg.num_kv_heads * hd))
+        k, v = k[:, :, heads], v[:, :, heads]
     o = L.decode_attention(q, k, v, k.shape[1])
-    o = o.reshape(b, 1, cfg.num_heads * hd)
-    return o @ p["wo"].to(x.dtype)
+    return L._out_proj(p, o, x, tp)

@@ -298,16 +298,18 @@ def place_tree(tree, shardings):
                                      for x, s in zip(leaves, shs)])
 
 
-def gather(x):
+def gather(x, keep: tuple = ()):
     """The full tensor of a DTensor ``x`` on every rank (every rank of its
     mesh must call), gathering innermost mesh dims first (DTensor cuts
-    the outermost first). A plain tensor is returned as it is."""
+    the outermost first); the mesh dims named in ``keep`` stay cut (this
+    rank's shard over them). A plain tensor is returned as it is."""
     if not isinstance(x, DTensor):
         return x
     dm, t = x.device_mesh, x.to_local()
     for j in reversed(range(dm.ndim)):
         pl = x.placements[j]
-        if not isinstance(pl, Shard) or dm.size(j) == 1:
+        if not isinstance(pl, Shard) or dm.size(j) == 1 \
+                or dm.mesh_dim_names[j] in keep:
             continue
         parts = [torch.empty_like(t) for _ in range(dm.size(j))]
         dist.all_gather(parts, t.contiguous(), group=dm.get_group(j))

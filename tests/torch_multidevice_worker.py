@@ -21,6 +21,14 @@ what the ranks found: rank 0 writes the gathered trees, every rank its own
 - ``train``, 4 ranks on (2, 2): ``make_train_step``'s 3 steps of qwen3-8b
   (1 and 2 microbatches) and of granite-moe (its routing groups whole on
   each rank); the no-fallback checks.
+- ``tp``, 4 ranks (``tests/test_torch_tensor_parallel.py``): the
+  tensor-parallel train step on (2, 2) (qwen3-8b, granite-moe,
+  llama-3.2-vision) and on (1, 4) (qwen3-8b), with what each rank
+  multiplied and gathered on its first step; prefill on (2, 2) (those
+  three and hubert-xlarge) and 8 decode steps on (2, 2) (qwen3-8b,
+  granite-moe) from the test's cache.
+- ``tp1``, 1 rank on (1, 1): the same code over a one-rank group, bit for
+  bit the one-device steps.
 """
 import dataclasses
 import importlib.util
@@ -34,13 +42,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch import _dist, _tree  # noqa: E402
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs import ARCH_ORDER, smoke_config  # noqa: E402
 from repro_torch.configs.base import (MeshConfig, ShapeConfig,  # noqa: E402
                                       TrainConfig)
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch import step_builders as sb  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_mesh  # noqa: E402
 from repro_torch.launch.step_builders import (bundle_for,  # noqa: E402
                                               crosspod_mean, stack_pods)
 from repro_torch.models import build_model  # noqa: E402
@@ -337,9 +347,14 @@ def train_scenario(out: Path, rank: int, checks: dict) -> None:
     expect("cuda_on_gloo", RuntimeError,
            lambda: make_mesh(mcfg, "cuda"))
     expect("init_cuda_on_gloo", RuntimeError, lambda: _dist.init("cuda"))
-    for kind in ("prefill", "decode"):
-        expect(kind, NotImplementedError, lambda: bundle_for(
-            kind, cfg, ShapeConfig("t", SEQ, BATCH, kind), mesh, mcfg))
+    # prefill and decode on the mesh: the transformer family builds (at a
+    # batch whose MoE routing groups a data rank holds whole), the
+    # recurrent families raise
+    for arch in ARCH_ORDER:
+        for kind, rows in (("prefill", BATCH), ("decode", SERVE_ROWS)):
+            expect(f"{arch}/{kind}", NotImplementedError, lambda: bundle_for(
+                kind, f32_smoke(arch), ShapeConfig("t", MOE_SEQ, rows, kind),
+                mesh, mcfg))
     # MoE routing groups of the whole batch that a rank's shard would cut
     moe = f32_smoke(MOE)
     expect("moe_seq", ValueError, lambda: bundle_for(
@@ -351,7 +366,243 @@ def train_scenario(out: Path, rank: int, checks: dict) -> None:
     checks["raised"] = raised
 
 
-SCENARIOS = {"pods": pods_scenario, "train": train_scenario}
+# -- tensor-parallel compute over model --------------------------------------
+
+VLM = "llama-3.2-vision-11b"
+TP_TRAIN = {"qwen3-8b": SEQ, MOE: MOE_SEQ, VLM: SEQ}  # arch -> seq
+TP_PREFILL = ("qwen3-8b", MOE, VLM, "hubert-xlarge")
+SERVE_ROWS = 128  # decode rows: two whole 64-token MoE groups over data 2
+TP_DECODE = {(2, 2): {f"2x2/{a}": (a, MOE_SEQ)  # key -> (arch, cache seq)
+                      for a in ("qwen3-8b", MOE, VLM)},
+             (1, 4): {"1x4/qwen3-8b": ("qwen3-8b", MOE_SEQ),
+                      "1x4-seq30/qwen3-8b": ("qwen3-8b", 30)}}
+DECODE_STEPS = 8
+MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+           torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+class MatmulOperands(TorchDispatchMode):
+    """Notes, per parameter leaf, the element counts of the matmul-class
+    operands that are views of the tensor the rank computes with."""
+
+    def __init__(self, owners: dict):
+        super().__init__()
+        self.owners, self.seen = owners, {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in MATMULS:
+            for a in args:
+                if isinstance(a, torch.Tensor):
+                    path = self.owners.get(a.untyped_storage().data_ptr())
+                    if path is not None:
+                        self.seen.setdefault(path, []).append(a.numel())
+        return func(*args, **(kwargs or {}))
+
+
+def recording_group_calls(group, log: dict):
+    """Count the all_reduce / all_gather / all_gather_into_tensor /
+    reduce_scatter_tensor calls made over ``group``; -> the originals, to
+    put back."""
+    dist = torch.distributed
+    orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather",
+                                          "all_gather_into_tensor",
+                                          "reduce_scatter_tensor")}
+
+    def wrap(name):
+        def call(*args, group=None, **kw):
+            if group is not None and group == want:
+                log[name] = log.get(name, 0) + 1
+            return orig[name](*args, group=group, **kw)
+        return call
+
+    want = group
+    for n in orig:
+        setattr(dist, n, wrap(n))
+    return orig
+
+
+def split_record(bundle, mesh, first_step):
+    """Run ``first_step()`` (the bundle's first train step) noting, on this
+    rank: the shape and bytes of every parameter as the rank computes with
+    it, the matmul operands that are views of them, and the collectives
+    over the ``model`` group inside the forward and backward."""
+    paths = sb._tree_paths(bundle.model.param_axes())
+    runs, rec = [], {"calls": {}}
+    orig_cp, orig_vg = sb._Compute.params, sb.value_and_grad
+
+    def compute_params(compute, leaves):
+        runs.append(orig_cp(compute, leaves))
+        return runs[-1]
+
+    def value_and_grad(model, params, batch, **kw):
+        owners = {t.untyped_storage().data_ptr(): p
+                  for p, t in zip(paths, runs[-1])}
+        orig = recording_group_calls(mesh.device_mesh.get_group("model"),
+                                     rec["calls"])
+        try:
+            with MatmulOperands(owners) as mode:
+                out = orig_vg(model, params, batch, **kw)
+        finally:
+            for n, f in orig.items():
+                setattr(torch.distributed, n, f)
+        rec["operands"] = mode.seen
+        return out
+
+    sb._Compute.params, sb.value_and_grad = compute_params, value_and_grad
+    try:
+        out = first_step()
+    finally:
+        sb._Compute.params, sb.value_and_grad = orig_cp, orig_vg
+    rec["record"] = bundle.tp_record
+    rec["run_shapes"] = {p: list(t.shape) for p, t in zip(paths, runs[0])}
+    rec["run_bytes"] = sum(t.numel() * t.element_size() for t in runs[0])
+    return out, rec
+
+
+def tp_train(out: Path, arch: str, seq: int, mesh, mcfg, checks, key):
+    """3 train steps of ``arch`` on ``mesh`` from the test's parameters and
+    batches, the first noted by ``split_record``; rank 0 saves the
+    gathered result."""
+    params = torch.load(out / f"params_{arch}.pt")
+    batches = np.load(out / f"batches_{arch}.npz")
+    tcfg = TrainConfig(**TRAIN)
+    bundle = bundle_for("train", f32_smoke(arch),
+                        ShapeConfig("t", seq, BATCH, "train"), mesh, mcfg,
+                        tcfg)
+    p, o, metrics = params, adamw_init(params, tcfg), []
+    for step in range(STEPS):
+        batch = {k[len(f"{step}/"):]: torch.from_numpy(v) for k, v in
+                 batches.items() if k.startswith(f"{step}/")}
+        run = lambda: bundle.fn(p, o, batch, step)  # noqa: E731
+        if step == 0:
+            (p, o, m), checks["split"][key] = split_record(bundle, mesh, run)
+        else:
+            p, o, m = run()
+        metrics.append({k: float(v) for k, v in m.items()})
+    gp, go = host(p), host(o)
+    checks["shards_match_gathered"] &= local_matches(p, gp)
+    if torch.distributed.get_rank() == 0:
+        torch.save({"params": gp, "opt": go, "metrics": metrics},
+                   out / f"tp_train_{key.replace('/', '_')}.pt")
+
+
+def tp_prefill(out: Path, mesh, mcfg, checks, rank: int) -> None:
+    """Prefill (``TP_PREFILL``) on ``mesh`` from the test's parameters and
+    prompts."""
+    for arch in TP_PREFILL:
+        params = torch.load(out / f"params_{arch}.pt")
+        z = np.load(out / f"prefill_{arch}.npz")
+        batch = {k: torch.from_numpy(z[k]) for k in z.files}
+        b = bundle_for("prefill", f32_smoke(arch),
+                       ShapeConfig("p", MOE_SEQ, BATCH, "prefill"), mesh,
+                       mcfg)
+        logits = b.fn(params, batch)
+        checks["prefill_shapes"][arch] = list(logits.to_local().shape)
+        got = host(logits)
+        if rank == 0:
+            torch.save(got, out / f"tp_prefill_{arch}.pt")
+
+
+def tp_decode(out: Path, mesh, mcfg, checks, rank: int, runs: dict) -> None:
+    """Decode (``runs``: key -> arch, cache positions) on ``mesh`` from the
+    test's parameters, cache and tokens."""
+    for key, (arch, seq) in runs.items():
+        name = key.replace("/", "_")
+        params = torch.load(out / f"params_{arch}.pt")
+        z = np.load(out / f"decode_{name}.npz")
+        model = build_model(f32_smoke(arch), device="cpu")
+        spec = model.cache_spec(SERVE_ROWS, seq)
+        leaves, treedef = _tree.flatten(spec)
+        cache = _tree.unflatten(treedef, [torch.from_numpy(z[f"c{i}"])
+                                          for i in range(len(leaves))])
+        b = bundle_for("decode", f32_smoke(arch),
+                       ShapeConfig("d", seq, SERVE_ROWS, "decode"),
+                       mesh, mcfg)
+        logits = []
+        for i in range(DECODE_STEPS):
+            lg, cache = b.fn(params, cache, {
+                "tokens": torch.from_numpy(z["tokens"][:, i:i + 1]),
+                "pos": int(z["pos0"]) + i})
+            logits.append(host(lg))
+        checks["decode_shapes"][key] = {
+            "logits": list(lg.to_local().shape),
+            "cache": [list(l.to_local().shape) for l in _tree.leaves(cache)]}
+        got = host(cache)
+        if rank == 0:
+            torch.save({"logits": logits, "cache": got},
+                       out / f"tp_decode_{name}.pt")
+
+
+def tp_scenario(out: Path, rank: int, checks: dict) -> None:
+    checks.update(split={}, prefill_shapes={}, decode_shapes={},
+                  shards_match_gathered=True)
+    for shape, archs in (((2, 2), list(TP_TRAIN)), ((1, 4), ["qwen3-8b"])):
+        mcfg = MeshConfig(shape, ("data", "model"))
+        mesh = make_mesh(mcfg, "cpu")
+        for arch in archs:
+            tp_train(out, arch, TP_TRAIN[arch], mesh, mcfg, checks,
+                     f"{shape[0]}x{shape[1]}/{arch}")
+        if shape == (2, 2):
+            tp_prefill(out, mesh, mcfg, checks, rank)
+        tp_decode(out, mesh, mcfg, checks, rank, TP_DECODE[shape])
+
+
+def tp1_scenario(out: Path, rank: int, checks: dict) -> None:
+    """A group of one rank: the train step (qwen3-8b, granite-moe),
+    prefill and decode (qwen3-8b) through the tensor-parallel code (every
+    split whole, every collective a one-rank call) against the one-device
+    code from the same state: bit for bit."""
+    names = ("data", "model")
+    mcfg = MeshConfig((1, 1), names)
+    mesh, one = make_mesh(mcfg, "cpu"), Mesh(names, (1, 1),
+                                             torch.device("cpu"))
+    tcfg = TrainConfig(**TRAIN)
+    same = {}
+    for arch in ("qwen3-8b", MOE):
+        cfg = f32_smoke(arch)
+        shape = ShapeConfig("t", MOE_SEQ, BATCH, "train")
+        bundles = [bundle_for("train", cfg, shape, m, mcfg, tcfg)
+                   for m in (one, mesh)]
+        params = bundles[0].model.init(torch.Generator().manual_seed(1))
+        rng = np.random.default_rng(2)
+        batches = [{k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (BATCH, MOE_SEQ)).astype(np.int32))
+            for k in ("tokens", "targets")} for _ in range(2)]
+        runs = []
+        for b in bundles:
+            p, o, ms = params, adamw_init(params, tcfg), []
+            for step, batch in enumerate(batches):
+                p, o, m = b.fn(p, o, batch, step)
+                ms.append(m)
+            runs.append(_tree.leaves((host(p), host(o), ms)))
+        same[f"train/{arch}"] = all(torch.equal(a, b)
+                                    for a, b in zip(*runs))
+    cfg = f32_smoke("qwen3-8b")
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (BATCH, MOE_SEQ)).astype(np.int32))
+    outs = [host(bundle_for("prefill", cfg, ShapeConfig(
+        "p", MOE_SEQ, BATCH, "prefill"), m, mcfg).fn(
+        params, {"tokens": prompts})) for m in (one, mesh)]
+    same["prefill"] = torch.equal(*outs)
+    runs = []
+    for m in (one, mesh):
+        b = bundle_for("decode", cfg, ShapeConfig("d", MOE_SEQ, BATCH,
+                                                  "decode"), m, mcfg)
+        cache, logits = model.init_cache(BATCH, MOE_SEQ), []
+        for pos in range(DECODE_STEPS):
+            lg, cache = b.fn(params, cache, {"tokens": prompts[:, pos:pos + 1],
+                                             "pos": pos})
+            logits.append(host(lg))
+        runs.append(logits + _tree.leaves(host(cache)))
+    same["decode"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    checks["same"] = same
+
+
+SCENARIOS = {"pods": pods_scenario, "train": train_scenario,
+             "tp": tp_scenario, "tp1": tp1_scenario}
 
 
 def main(argv) -> int:
