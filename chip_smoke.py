@@ -170,7 +170,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    size 1's tokens, every step's logits within phase 14's bf16 bar of
    world size 1's, each rank's step ms, peak memory and collectives
    printed (on one card, a line says no cross-card run took place); the
-   six kernels' launch counts asserted 0.
+   six kernels' launch counts asserted 0;
+19. tensor-parallel compute over ``model`` for the recurrent families
+   (zamba2's Mamba blocks by SSM heads and its shared block as the
+   transformer's; xLSTM's mLSTM blocks over their inner channels, their
+   decode state by the key dim, its sLSTM blocks by heads), over a
+   process group of one rank a card: at world size 1, for ``zamba2-1.2b``
+   and ``xlstm-1.3b`` at full width in bf16, (a) 12 decode steps of 8
+   rows from ``init_cache`` through ``make_decode_step``, one-device,
+   split, split, one-device in one process, every step's logits and the
+   final state bit for bit, ms a step (host clock), one-rank collectives
+   and a step's launches and device ms under ``torch.profiler``; (b) the
+   train step (4 x 64) through the tensor-parallel code bit for bit the
+   one-device step, then 3 warm steps of each, alternating; with 2 or
+   more cards (c) each arch on (1, n) as phase 18 (c) runs qwen3-8b,
+   zamba2 in bf16 and both in f32 (every decode step's logits within
+   F32_BAR of world size 1's); the six kernels' launch counts asserted 0.
 
 The three FedAvg kernels flush subnormals as XLA does on the CPU and sum
 the clients in order, so each is held bit for bit against its plain
@@ -3759,7 +3774,7 @@ TP_TRAIN_TIMED = 3  # phase 18 (b)'s timed steps of each variant
 # on the tokens world size 1 took; each rank writes its readings, rank 0
 # the gathered logits too
 TP_RANK_SCRIPT = """
-import json, sys, time
+import dataclasses, json, sys, time
 import torch
 from repro_torch import _dist
 from repro_torch.configs import get_config, smoke_config
@@ -3771,11 +3786,14 @@ from repro_torch.launch.step_builders import bundle_for
 from repro_torch.optim import adamw_init
 from repro_torch.sharding import gather, place_tree
 from chip_smoke import recording_collectives
-arch, rank, world, init, tokens_in, out, smoke, seed = json.loads(sys.argv[1])
+(arch, rank, world, init, tokens_in, out, smoke, seed,
+ f32) = json.loads(sys.argv[1])
 dev = _dist.init("cuda" if torch.cuda.is_available() and not smoke
                  else "cpu", rank=rank, world_size=world, init_file=init)
 torch.backends.cuda.matmul.allow_tf32 = False
 cfg = smoke_config(arch) if smoke else get_config(arch)
+if f32:
+    cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
 names = ("data", "model")
 mcfg = MeshConfig((1, world), names)
 mesh = make_mesh(mcfg, dev.type)
@@ -4003,14 +4021,15 @@ def decode_profile(decode, params, prompts, step_ms: float) -> str:
             f"{busy / step_ms:.3f} of the median step")
 
 
-def tp_training(card: str, smi: str, device, mesh) -> None:
-    """Phase 18 (b): TP_TRAIN_ARCH's full-width train step (phase 15 (a)'s
-    shape) on the one-device mesh and through the tensor-parallel code on
-    ``mesh`` (world size 1), from one state: bit for bit. Each variant's
-    first step warms it and is the one compared; then TP_TRAIN_TIMED
-    steps of each from the same state, in the order split, one-device,
-    one-device, split, ..., their median reported."""
-    cfg = get_config(TP_TRAIN_ARCH)
+def tp_training(card: str, smi: str, device, mesh, arch: str = TP_TRAIN_ARCH,
+                phase: str = "18 (b)") -> None:
+    """Phase 18 (b) (and 19 (b) for ``arch``): ``arch``'s full-width train
+    step (phase 15 (a)'s shape) on the one-device mesh and through the
+    tensor-parallel code on ``mesh`` (world size 1), from one state: bit
+    for bit. Each variant's first step warms it and is the one compared;
+    then TP_TRAIN_TIMED steps of each from the same state, in the order
+    split, one-device, one-device, split, ..., their median reported."""
+    cfg = get_config(arch)
     shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
     tcfg = train_config(TRAIN_STEPS)
     one = Mesh(SMOKE_MESH.axis_names, SMOKE_MESH.shape, device)
@@ -4038,40 +4057,45 @@ def tp_training(card: str, smi: str, device, mesh) -> None:
         with recording_collectives(calls):
             out[name], warm = step(name)
         note = (f"; {tp_record_note(b)}" if b.tp_record else "")
-        log(f"phase 18 (b) {TP_TRAIN_ARCH} train step, {name}: {warm:.3f} ms "
+        log(f"phase {phase} {arch} train step, {name}: {warm:.3f} ms "
             f"(its first step), loss {float(out[name][2]['loss']):.6f}, "
             f"gnorm {float(out[name][2]['gnorm']):.6f}{note}; collectives: "
             f"{collective_note(calls)}; {memory_note()} ({smi})")
+    (p1, o1, m1), (p2, o2, m2) = out["one-device"], out["tensor-parallel"]
+    same = all(bits_equal(local(y), x) for x, y in zip(
+        _tree.leaves((p1, o1)), _tree.leaves((p2, o2))))
+    same &= all(bits_equal(m2[k], m1[k]) for k in ("loss", "gnorm", "lr"))
+    del out, p1, o1, p2, o2  # the timed steps' outputs need the room
+    release()
+    if not same:
+        raise AssertionError(f"phase {phase}: the train step through the "
+                             "tensor-parallel code differs from the "
+                             "one-device step")
+    log(f"phase {phase}: {arch}'s parameters, moments, count, loss, gnorm "
+        f"and lr bit for bit the one-device step's")
     order = ("tensor-parallel", "one-device", "one-device", "tensor-parallel")
     for i in range(TP_TRAIN_TIMED):
         for name in (order[:2] if i % 2 == 0 else order[2:]):
             ms[name].append(step(name)[1])
     for name, t in ms.items():
-        log(f"phase 18 (b) {TP_TRAIN_ARCH} train step, {name}: "
+        log(f"phase {phase} {arch} train step, {name}: "
             f"{statistics.median(t):.3f} ms (median of {len(t)} warm steps "
             f"from one state, the variants alternating: "
             f"{', '.join(f'{x:.3f}' for x in t)}) ({smi})")
-    (p1, o1, m1), (p2, o2, m2) = out["one-device"], out["tensor-parallel"]
-    same = all(bits_equal(local(y), x) for x, y in zip(
-        _tree.leaves((p1, o1)), _tree.leaves((p2, o2))))
-    same &= all(bits_equal(m2[k], m1[k]) for k in ("loss", "gnorm", "lr"))
-    if not same:
-        raise AssertionError("phase 18 (b): the train step through the "
-                             "tensor-parallel code differs from the "
-                             "one-device step")
-    log("phase 18 (b): parameters, moments, count, loss, gnorm and lr bit "
-        "for bit the one-device step's")
-    del params, opt, out, p1, o1, p2, o2
+    del params, opt
     release()
 
 
 def tp_across_cards(card: str, n_cards: int, device, tokens,
-                    smoke: bool = False) -> None:
-    """Phase 18 (c), with 2 or more cards: TP_SERVE_ARCH at full width on
-    (1, n), one rank a card over NCCL: one train step (AdamW from the
-    drawn parameters), then decode over ``tokens`` (world size 1's prompts
-    and generated tokens), every step's logits held against world size
-    1's at SERVE_BAR. ``smoke``: its smoke config (a rehearsal)."""
+                    smoke: bool = False, arch: str = TP_SERVE_ARCH,
+                    phase: str = "18 (c)", f32: bool = False) -> None:
+    """Phase 18 (c) (and 19 (c) for ``arch``), with 2 or more cards:
+    ``arch`` at full width on (1, n), one rank a card over NCCL: one train
+    step (AdamW from the drawn parameters), then decode over ``tokens``
+    (world size 1's tokens), every step's logits held against world size
+    1's at phase 14's bf16 bar for ``arch`` (``f32``: the config in f32,
+    at F32_BAR). ``smoke``: its smoke config (a rehearsal)."""
+    label = f"{arch} {'f32' if f32 else 'bf16'}"
     tmp = tempfile.mkdtemp(prefix="chip-smoke-tp-")
     world = n_cards
     try:
@@ -4083,8 +4107,8 @@ def tp_across_cards(card: str, n_cards: int, device, tokens,
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, "-c", TP_RANK_SCRIPT, json.dumps(
-                [TP_SERVE_ARCH, r, world, os.path.join(tmp, "init"),
-                 tokens_in, out, smoke, TP_SEED])],
+                [arch, r, world, os.path.join(tmp, "init"),
+                 tokens_in, out, smoke, TP_SEED, f32])],
             env=dict(env, LOCAL_RANK=str(r))) for r in range(world)]
         try:
             rcs = [p.wait(timeout=900) for p in procs]
@@ -4094,7 +4118,7 @@ def tp_across_cards(card: str, n_cards: int, device, tokens,
                     p.kill()
                     p.wait()
         if any(rcs):
-            raise AssertionError(f"phase 18 (c): the {world} ranks exited "
+            raise AssertionError(f"phase {phase}: the {world} ranks exited "
                                  f"{rcs}")
         wall = time.perf_counter() - t0
         got = [torch.load(out.format(rank=r)) for r in range(world)]
@@ -4102,8 +4126,8 @@ def tp_across_cards(card: str, n_cards: int, device, tokens,
         shutil.rmtree(tmp, ignore_errors=True)
     for g in got:
         r = g["rec"]
-        log(f"phase 18 (c) rank {r['rank']} of {world} ({r['device']}, "
-            f"{card}): {TP_SERVE_ARCH} train step {r['train_ms']:.3f} ms "
+        log(f"phase {phase} rank {r['rank']} of {world} ({r['device']}, "
+            f"{card}): {label} train step {r['train_ms']:.3f} ms "
             f"(step 0), loss {r['loss']:.6f}, gnorm {r['gnorm']:.6f}, peak "
             f"{r['train_peak_gib']:.3f} GiB; decode "
             f"{r['decode_ms']:.3f} ms a step (median of "
@@ -4111,26 +4135,31 @@ def tp_across_cards(card: str, n_cards: int, device, tokens,
             f"leaves {r['record']}; collectives: train "
             f"{collective_note(r['train_calls'])}, decode "
             f"{collective_note(r['decode_calls'])}")
-    want = tp_reference_logits(tokens, device, smoke)
-    worst = 0.0
-    for i, (g, w) in enumerate(zip(got[0]["logits"], want)):
-        err = float((g.float() - w.float()).abs().max())
+    want = tp_reference_logits(tokens, device, smoke, arch, f32)
+    bar = F32_BAR if f32 else SERVE_BARS.get(arch, SERVE_BAR)
+    errs = []
+    for g, w in zip(got[0]["logits"], want):
         top = float(w.float().abs().max())
-        worst = max(worst, err / top)
-        if not bool(torch.isfinite(g.float()).all()) or err > SERVE_BAR * top:
-            raise AssertionError(f"phase 18 (c): decode step {i} across "
-                                 f"{world} cards {err:.4e} from world size "
-                                 f"1's, of {top:.4f}")
-    log(f"phase 18 (c) across {world} cards ({card}): {wall:.3f} s wall "
-        f"with the ranks' start; every decode step's logits within "
-        f"{worst:.4e} of the largest |logit| of world size 1's (bar "
-        f"{SERVE_BAR})")
+        errs.append(float((g.float() - w.float()).abs().max()) / top
+                    if bool(torch.isfinite(g.float()).all()) else math.inf)
+    log(f"phase {phase} {label} across {world} cards ({card}): {wall:.3f} s "
+        f"wall with the ranks' start; each decode step's logits from world "
+        f"size 1's, of the largest |logit|: "
+        f"{', '.join(f'{e:.4e}' for e in errs)} (bar {bar})")
+    if max(errs) > bar:
+        raise AssertionError(f"phase {phase}: {label}'s decode across "
+                             f"{world} cards {max(errs):.4e} of the largest "
+                             f"|logit| from world size 1's (bar {bar})")
 
 
-def tp_reference_logits(tokens, device, smoke: bool) -> list:
+def tp_reference_logits(tokens, device, smoke: bool,
+                        arch: str = TP_SERVE_ARCH, f32: bool = False) -> list:
     """Every decode step's logits at world size 1 (the one-device code)
-    over ``tokens``, from the parameters TP_SEED draws."""
-    cfg = smoke_config(TP_SERVE_ARCH) if smoke else get_config(TP_SERVE_ARCH)
+    over ``tokens``, from the parameters TP_SEED draws (``f32``: the
+    config in f32)."""
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     b, total = tokens.shape
     one = Mesh(SMOKE_MESH.axis_names, SMOKE_MESH.shape, device)
     db = bundle_for("decode", cfg, ShapeConfig("d", total, b, "decode"), one,
@@ -4176,6 +4205,128 @@ def tensor_parallel_path(card: str, smi: str, device) -> None:
         log("phase 18 (c): one card, so no cross-card run took place (NCCL "
             "takes one rank a card): the tensor-parallel code ran at world "
             "size 1 only")
+
+
+# -- phase 19: tensor-parallel compute over model, the recurrent families --
+# zamba2's Mamba blocks by SSM heads (its shared block as the
+# transformer's), xLSTM's mLSTM blocks over their inner channels (in
+# decode, the key dim of their state) and its sLSTM blocks by heads,
+# through the same code at world size 1: bit for bit the one-device steps
+TPR_ARCHS = ("zamba2-1.2b", "xlstm-1.3b")
+TPR_DECODE_STEPS = 12  # from init_cache; the first of each run warms it
+TPR_VARIANTS = ("one-device", "tensor-parallel", "tensor-parallel",
+                "one-device")
+
+
+def step_device(fn) -> str:
+    """One call of ``fn`` under ``torch.profiler`` (warm): its kernel
+    launches and device ms."""
+    rows = device_breakdown(fn, reps=3)
+    return (f"{sum(r[2] for r in rows):.0f} kernel launches, "
+            f"{sum(r[1] for r in rows) / 1e3:.3f} ms of device time")
+
+
+def tpr_decode(arch: str, smi: str, device, mesh):
+    """Phase 19 (a): ``arch`` at full width in bf16, TPR_DECODE_STEPS
+    decode steps of SERVE_REQUESTS rows from ``init_cache`` through
+    ``make_decode_step`` on the one-device mesh and through the
+    tensor-parallel code on ``mesh`` (world size 1), alternating in the
+    order TPR_VARIANTS, from one state: every step's logits and the final
+    state bit for bit the first run's. -> the tokens fed (for the
+    cross-card run)."""
+    cfg = get_config(arch)
+    total = TPR_DECODE_STEPS
+    shape = ShapeConfig("d", total, SERVE_REQUESTS, "decode")
+    one = Mesh(SMOKE_MESH.axis_names, SMOKE_MESH.shape, device)
+    bundles = {"one-device": bundle_for("decode", cfg, shape, one,
+                                        SMOKE_MESH),
+               "tensor-parallel": bundle_for("decode", cfg, shape, mesh,
+                                             SMOKE_MESH)}
+    fresh_peak()
+    g = torch.Generator(device=device).manual_seed(TP_SEED)
+    params = bundles["one-device"].model.init(g)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS, total),
+                           generator=g, device=device, dtype=torch.int32)
+    want, same, step_s, notes = None, True, {}, {}
+    for name in TPR_VARIANTS:
+        b, calls, logits, times = bundles[name], [], [], []
+        cache = b.model.init_cache(SERVE_REQUESTS, total)
+        with recording_collectives(calls):
+            for pos in range(total):
+                synchronize()
+                t0 = time.perf_counter()
+                lg, cache = b.fn(params, cache, {
+                    "tokens": tokens[:, pos:pos + 1], "pos": pos})
+                synchronize()
+                times.append(time.perf_counter() - t0)
+                logits.append(local(lg))
+        step_s.setdefault(name, []).extend(times[1:])
+        got = (logits, [local(x) for x in _tree.leaves(cache)])
+        if want is None:
+            want = (logits, [x.clone() for x in got[1]])
+        else:
+            same &= all(bits_equal(x, y) for x, y in zip(
+                got[0] + got[1], want[0] + want[1]))
+        if name not in notes:
+            note = (f"{tp_record_note(b)}; one-rank collectives over its "
+                    f"{total} steps: {collective_note(calls)}; "
+                    if b.tp_record else "")
+            notes[name] = (f"{note}a step under torch.profiler: "
+                           + step_device(lambda: b.fn(params, cache, {
+                               "tokens": tokens[:, :1], "pos": 0})))
+        del cache, got
+    for name, t in step_s.items():
+        log(f"phase 19 (a) {arch} full width bf16, {name}: "
+            f"{SERVE_REQUESTS} rows, {total} decode steps from init_cache; "
+            f"{statistics.median(t) * 1e3:.3f} ms a step (median of "
+            f"{len(t)} warm, host clock; min {min(t) * 1e3:.3f}, max "
+            f"{max(t) * 1e3:.3f}); {notes[name]}; {memory_note()} ({smi})")
+    if not same:
+        raise AssertionError(f"phase 19 (a): {arch}'s decode through the "
+                             f"tensor-parallel code differs from the "
+                             f"one-device steps")
+    log(f"phase 19 (a): {arch}'s logits of every decode step and the final "
+        f"state of all {len(TPR_VARIANTS)} runs bit for bit the first "
+        f"one-device run's")
+    del params, want
+    release()
+    return tokens.cpu()
+
+
+def recurrent_tp_path(card: str, smi: str, device) -> None:
+    """Phase 19: a process group of one rank on this card for (a) and (b),
+    each arch of TPR_ARCHS; then, with 2 or more cards, (c)."""
+    import torch.distributed as dist
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tpr-")
+    tokens = {}
+    try:
+        _dist.init(device.type, rank=0, world_size=1,
+                   init_file=os.path.join(tmp, "init"))
+        mesh = make_mesh(SMOKE_MESH, device.type)
+        log(f"phase 19: world size {dist.get_world_size()}, backend "
+            f"{dist.get_backend()}, mesh {mesh.shape} over "
+            f"{mesh.axis_names} on {mesh.device} ({n_cards} card(s), "
+            f"{smi})")
+        for arch in TPR_ARCHS:
+            tokens[arch] = tpr_decode(arch, smi, device, mesh)
+            tp_training(card, smi, device, mesh, arch, "19 (b)")
+    finally:
+        _dist.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if n_cards >= 2:
+        # in f32 at F32_BAR, and in bf16 at phase 14's bar where that bar
+        # is SERVE_BAR: xLSTM's bf16 decode moves with the order of its
+        # sums (phase 14's looser bar), and the split reorders every
+        # row-parallel sum
+        for arch in TPR_ARCHS:
+            for f32 in (True,) if arch in SERVE_BARS else (False, True):
+                tp_across_cards(card, n_cards, device, tokens[arch],
+                                arch=arch, phase="19 (c)", f32=f32)
+    else:
+        log("phase 19 (c): one card, so no cross-card run took place (NCCL "
+            "takes one rank a card): the recurrent families' split ran at "
+            "world size 1 only")
 
 
 def main() -> int:
@@ -4265,6 +4416,15 @@ def main() -> int:
         raise AssertionError("the tensor-parallel path launched a FedAvg, "
                              "quantize or top-k kernel")
     phase_done("18 (tensor-parallel compute over model)")
+    zero_launches()
+    recurrent_tp_path(card, smi, device)
+    counts = launches()
+    log(f"phase 19 launches of the six kernels: {counts}")
+    if any(counts.values()):
+        raise AssertionError("the recurrent families' tensor-parallel path "
+                             "launched a FedAvg, quantize or top-k kernel")
+    phase_done("19 (tensor-parallel compute over model, the recurrent "
+               "families)")
 
     # launches: over the main paths each kernel is on, each path run with
     # the counts at 0 (fedavg_reduce: the sync rounds, the event runs, the

@@ -15,14 +15,16 @@ parameters and moments FSDP over ``data``, tensor-parallel over
 over ``model``), as the reference's ``jit`` does with its
 ``in_shardings``, and returns DTensors laid out as its
 ``out_shardings``. Each rank gathers the parameters over the FSDP axes
-only and computes with its ``model`` shards (the transformer family,
-``sharding/tensor_parallel.py``: split matmuls, the vocab-parallel loss,
-experts over ``expert``, flash-decode over the cache), as GSPMD
-partitions the reference's steps; a leaf the model runs whole
-(``tp_whole``: rule 1) is gathered over ``model`` too, and so is every
-leaf of the recurrent families, which compute whole (their ``ssm_inner``
-splits are ROADMAP A, item 20, and so are their prefill and decode on a
-mesh). The train step's gradient, each rank's shard of it, is averaged
+only and computes with its ``model`` shards
+(``sharding/tensor_parallel.py``: split matmuls, the vocab-parallel loss,
+experts over ``expert``, flash-decode over the cache; Mamba2's blocks by
+SSM heads, xLSTM's mLSTM blocks over their inner channels, by heads in
+training and by the key dim of their state in decode, its sLSTM blocks
+by heads), as GSPMD partitions the reference's steps; a leaf the model
+runs whole (``tp_whole``: rule 1) is gathered over ``model`` too. The
+decode state is laid out by ``cache_axes``, and a decode step moves
+activations over ``model``, never state. The train step's gradient, each
+rank's shard of it, is averaged
 over the batch axes in f32: reduce-scattered over a leaf's FSDP dim,
 all-reduced over the rest. On one device the same code runs with no
 collective and places nothing. A batch shard whose MoE tokens would fall
@@ -37,7 +39,6 @@ parameter dtype), and every optimizer update its operations
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import torch
@@ -56,14 +57,6 @@ from repro_torch.sharding.rules import (MeshPlan, Sharding,
                                         contiguous_stride, gather,
                                         is_axes_leaf, like, local, place,
                                         place_tree, placing, spec_axes)
-
-# the next ROADMAP item (A): what a mesh over several ranks does not do yet
-MULTI_DEVICE_SERVE = ("prefill and decode of the recurrent families (zamba2, "
-                      "xLSTM) on a mesh of more than one device are not "
-                      "ported yet (ROADMAP A, item 20: their ssm_inner "
-                      "splits): serve them on one device, or lower on meta "
-                      "for the dry run")
-
 
 @dataclasses.dataclass
 class StepBundle:
@@ -155,14 +148,12 @@ class _BatchAxes:
 
 
 class _Compute:
-    """How a model computes on a mesh: its ``model`` group (None: none, or
-    a family that computes whole) and, per parameter leaf, whether it
-    keeps its ``model`` shard (it runs split) or is gathered over
-    ``model`` too (``tp_whole``; every leaf of a family with no group)."""
+    """How a model computes on a mesh: its ``model`` group (None: none)
+    and, per parameter leaf, whether it keeps its ``model`` shard (it runs
+    split) or is gathered over ``model`` too (``tp_whole``)."""
 
     def __init__(self, model, mesh):
-        self.tp = (tpar.model_group(mesh) if hasattr(model, "tp_whole")
-                   else None)
+        self.tp = tpar.model_group(mesh)
         self.keep = ([False] * len(_tree.leaves(model.param_shapes()))
                      if self.tp is None else
                      [not w for w in _tree.leaves(model.tp_whole(
@@ -360,17 +351,6 @@ def _tree_paths(tree, prefix=()):
 # serve steps (prefill forward / single-token decode)
 # ---------------------------------------------------------------------------
 
-def _serving(model, mesh) -> "_Compute":
-    """How ``model`` serves on ``mesh``: split over its ``model`` group
-    (the transformer family on a mesh over a process group, of any size),
-    or as on one device. The recurrent families raise on a mesh of more
-    than one device (ROADMAP A, item 20)."""
-    compute = _Compute(model, mesh)
-    if compute.tp is None and placing(mesh) and math.prod(mesh.shape) > 1:
-        raise NotImplementedError(MULTI_DEVICE_SERVE)
-    return compute
-
-
 def _place_batch(batch: dict, lay) -> dict:
     """The batch's tensors laid out by ``lay`` (None: as they are), as
     this rank's shards; the decode position passes through."""
@@ -407,7 +387,7 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     ``out_shardings``, ``("batch", "vocab")``."""
     plan = MeshPlan(mesh_cfg)
     model = _model(cfg, plan, mesh)
-    compute = _serving(model, mesh)
+    compute = _Compute(model, mesh)
     p_shapes, p_axes = model.param_shapes(), model.param_axes()
     in_specs, in_axes = model.input_specs(shape)
     out_axes = ("batch", "vocab")
@@ -444,7 +424,7 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     the reference's ``out_shardings``, ``("batch", None, "vocab")``."""
     plan = MeshPlan(mesh_cfg)
     model = _model(cfg, plan, mesh)
-    compute = _serving(model, mesh)
+    compute = _Compute(model, mesh)
     p_shapes, p_axes = model.param_shapes(), model.param_axes()
     in_specs, in_axes = model.input_specs(shape)
     cache_spec = model.cache_spec(shape.global_batch, shape.seq_len)

@@ -22,7 +22,8 @@ first matrices column-parallel, ``wo`` and ``w_down`` row-parallel, the
 MoE's experts over ``expert``, the embedding, the head and the loss over
 ``vocab``, and decode over the cache's ``seq_kv`` (flash-decode). Heads
 are never cut mid-head: an attention block whose q heads do not divide
-over the group runs whole.
+over the group runs whole. ``rms_norm`` normalises over a dim split over
+the group (the recurrent blocks' gated norm).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.sharding.tensor_parallel import (copy_to, gather_from,
                                                   reduce_from, split_over,
-                                                  splits, vocab_logsumexp)
+                                                  splits, sum_over,
+                                                  vocab_logsumexp)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -128,11 +130,17 @@ class Init:
 # normalisation / rope
 # ---------------------------------------------------------------------------
 
-def rms_norm(x, scale, eps: float = 1e-5):
-    """In f32; the learned scale is stored as an offset from 1."""
+def rms_norm(x, scale, eps: float = 1e-5, tp=None):
+    """In f32; the learned scale is stored as an offset from 1. With
+    ``tp``, ``x``'s last dim is this rank's equal slice of the normalised
+    dim (and ``scale`` its slice of the scale): the mean of squares is the
+    mean over the group of each rank's ``torch.mean``, all-reduced in f32
+    both ways (``sum_over``), so over one rank it is ``torch.mean``'s."""
     dt = x.dtype
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    if tp is not None:
+        var = sum_over(var, tp) / tp.size
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dt)
 

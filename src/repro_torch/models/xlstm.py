@@ -13,6 +13,14 @@ reference, so here it is plain torch (a loop over chunks for its scan).
 The decode state is updated in place: at full width one mLSTM block's
 matrix memory is 8 requests x 4 heads x 1024^2 f32 (134 MB), 5.6 GB over
 the 42 blocks, which the reference rebuilds on every token.
+
+``forward``, ``loss`` and ``decode_step`` take an optional ``tp``, the
+``model`` group of a mesh (``sharding/tensor_parallel.py``), and the
+parameters as this rank's shards over it: the mLSTM blocks split over
+their inner channels, their cell by heads in training (where the heads
+divide) and by the key dim in decode; the sLSTM blocks by heads; the
+embedding, head and loss as the transformer's. ``tp_whole`` says which
+leaves run whole.
 """
 from __future__ import annotations
 
@@ -26,6 +34,10 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import input_specs, unstacked
+from repro_torch.sharding.tensor_parallel import (columns, copy_to,
+                                                  gather_from, reduce_from,
+                                                  share, split_over, sum_over,
+                                                  take, whole_columns)
 
 # ---------------------------------------------------------------------------
 # mLSTM cell: chunkwise parallel (training) and recurrent (decode)
@@ -102,12 +114,16 @@ def mlstm_chunkwise(q, k, v, i_logit, f_logit, chunk: int):
     return h.to(v.dtype)
 
 
-def mlstm_step(state, q, k, v, i_logit, f_logit):
+def mlstm_step(state, q, k, v, i_logit, f_logit, tp=None):
     """Recurrent mLSTM step. state=(C,n,m): (b,H,dh,dh),(b,H,dh),(b,H) f32,
     updated in place; q,k,v: (b,H,dh); i,f: (b,H). Returns (state, h).
-    Each rounding step is the reference's: C * fw + iw * (k v^T)."""
+    Each rounding step is the reference's: C * fw + iw * (k v^T).
+
+    With ``tp``, q, k, C and n hold this rank's slice of the key dim (C's
+    rows, as the plan stores them): the sums over it, ``q C`` and ``q n``,
+    are all-reduced over the group (one call); ``m`` and h are whole."""
     C, n, m = state
-    dh = q.shape[-1]
+    dh = v.shape[-1]
     qf = q.float() / math.sqrt(dh)
     kf, vf = k.float(), v.float()
     lf = F.logsigmoid(f_logit.float())
@@ -120,8 +136,11 @@ def mlstm_step(state, q, k, v, i_logit, f_logit):
     n.mul_(fw[..., None]).add_(iw[..., None] * kf)
     m.copy_(m_new)
     num = torch.einsum("bhd,bhde->bhe", qf, C)
-    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", qf, n)),
-                        torch.exp(-m_new))
+    qn = torch.einsum("bhd,bhd->bh", qf, n)
+    if tp is not None:
+        both = reduce_from(torch.cat([num, qn[..., None]], dim=-1), tp)
+        num, qn = both[..., :-1], both[..., -1]
+    den = torch.maximum(torch.abs(qn), torch.exp(-m_new))
     h = num / den[..., None]
     return (C, n, m), h.to(v.dtype)
 
@@ -171,36 +190,77 @@ def mlstm_block_init(init: L.Init, cfg: ModelConfig):
             "w_down": init.dense((di, d), dt, axes=("ssm_inner", "embed"))}
 
 
-def mlstm_block_apply(p, x, cfg: ModelConfig, state=None):
+def mlstm_block_apply(p, x, cfg: ModelConfig, state=None, tp=None):
     """state None for training (chunkwise); for a decode step, the dict of
-    C, n, m, conv, updated in place. Returns (x, state)."""
+    C, n, m, conv, updated in place. Returns (x, state).
+
+    With ``tp``, split over the inner channels where ``w_down``'s rows are
+    this rank's (else the block runs whole): the rank multiplies its
+    channels' columns of u and z (``columns`` re-cuts the packed
+    ``w_up``), convolves them, sums its rows' part of the gates (``w_if``
+    row-parallel, all-reduced) and ends in the row-parallel ``w_down``.
+    The cell: in training and prefill, where the heads divide over the
+    group, each rank's channels are its heads: the chunkwise form runs on
+    them and the gated norm's mean of squares is all-reduced; where they
+    do not, u and the conv's output are gathered and every rank runs the
+    whole cell. In decode the cell splits along the key dim, where the
+    plan stores C and n (``mlstm_step``): u and the conv's output are
+    gathered (one token), and each rank updates its rows of C and n."""
     d = cfg.d_model
     di = cfg.ssm_expand * d
     H = cfg.num_heads
     dh = di // H
     bsz, T, _ = x.shape
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    up = h @ p["w_up"].to(h.dtype)
+    tp = split_over(tp, p["w_down"].shape[-2], di)
+    cs = share(tp, di)  # this rank's inner channels
+    heads = state is None and (tp is None or H % tp.size == 0)
+    h = copy_to(L.rms_norm(x, p["ln"], cfg.norm_eps), tp)
+    up = h @ columns(p["w_up"], tp, 2 * di,
+                     (cs, (di + cs[0], di + cs[1]))).to(h.dtype)
     u, z = up.chunk(2, dim=-1)
     conv_state = None if state is None else state["conv"]
+    # conv's channels and w_if's rows are cut as w_down's rows: the rank's
     uc, new_conv = causal_conv(u, p["conv"], conv_state)
     uc = F.silu(uc)
-    uh = uc.reshape(bsz, T, H, dh)
-    q = _block_diag_apply(uh, p["wq"])
-    k = _block_diag_apply(uh, p["wk"])
-    v = u.reshape(bsz, T, H, dh)
-    gates = uc @ p["w_if"].to(uc.dtype) + p["b_if"].to(uc.dtype)
-    i_logit, f_logit = gates.chunk(2, dim=-1)  # (b,T,H) each
+    gates = uc @ p["w_if"].to(uc.dtype)
+    if heads:
+        gates = sum_over(gates, tp) + copy_to(p["b_if"], tp).to(uc.dtype)
+        hs = share(tp, H)  # this rank's heads' gates, (b,T,nh) each
+        i_logit, f_logit = (take(t, -1, (hs,)) for t in gates.chunk(2, -1))
+        wq, wk = (whole_columns(p[n], tp, (hs,), dim=0)
+                  for n in ("wq", "wk"))
+        nh = hs[1] - hs[0]
+    else:  # the cell whole: every channel's u and conv output
+        gates = reduce_from(gates, tp) + p["b_if"].to(uc.dtype)
+        i_logit, f_logit = gates.chunk(2, dim=-1)
+        if tp is not None:
+            u, uc = gather_from(torch.stack([u, uc]), tp, -1).unbind(0)
+        wq, wk, nh = p["wq"], p["wk"], H
+    uh = uc.reshape(bsz, T, nh, dh)
+    v = u.reshape(bsz, T, nh, dh)
     if state is None:
+        q = _block_diag_apply(uh, wq)
+        k = _block_diag_apply(uh, wk)
         hm = mlstm_chunkwise(q, k, v, i_logit, f_logit, cfg.mlstm_chunk)
     else:
+        ktp = split_over(tp, state["C"].shape[-2], dh)
+        dk = share(ktp, dh)  # this rank's rows of C
+        q = _block_diag_apply(uh, take(wq, -1, (dk,)))
+        k = _block_diag_apply(uh, take(wk, -1, (dk,)))
         _, hm = mlstm_step((state["C"], state["n"], state["m"]), q[:, 0],
-                           k[:, 0], v[:, 0], i_logit[:, 0], f_logit[:, 0])
+                           k[:, 0], v[:, 0], i_logit[:, 0], f_logit[:, 0],
+                           ktp)
         hm = hm[:, None]
         state["conv"].copy_(new_conv)
-    hm = hm.reshape(bsz, T, di)
-    hm = L.rms_norm(hm, p["out_norm"], cfg.norm_eps) * F.silu(z)
-    out = hm @ p["w_down"].to(hm.dtype)
+    if heads:
+        hm = L.rms_norm(hm.reshape(bsz, T, cs[1] - cs[0]),
+                        whole_columns(p["out_norm"], tp, (cs,)), cfg.norm_eps,
+                        tp)
+    else:  # whole on every rank, then this rank's channels
+        hm = L.rms_norm(hm.reshape(bsz, T, di), p["out_norm"], cfg.norm_eps)
+        hm = take(copy_to(hm, tp), -1, (cs,))
+    hm = hm * F.silu(z)
+    out = reduce_from(hm @ p["w_down"].to(hm.dtype), tp)
     return x + out, state
 
 
@@ -209,7 +269,7 @@ def slstm_block_init(init: L.Init, cfg: ModelConfig):
     H = cfg.num_heads
     dh = d // H
     dt = L.dtype_of(cfg.param_dtype)
-    ffd = int(d * 4 / 3 // 64 * 64)
+    ffd = _ffn_width(d)
     return {"ln": init.zeros((d,), dt, axes=("norm",)),
             "conv": init.dense((4, d), dt, axes=(None, "embed")),
             "w_gates": init.dense((d, 4 * d), dt,
@@ -224,26 +284,39 @@ def slstm_block_init(init: L.Init, cfg: ModelConfig):
             "ln_ffn": init.zeros((d,), dt, axes=("norm",))}
 
 
-def slstm_block_apply(p, x, cfg: ModelConfig, state=None):
+def slstm_block_apply(p, x, cfg: ModelConfig, state=None, tp=None):
     """Sequential sLSTM. state None -> the whole sequence (training);
-    else one decode step, the dict of c, n, m, h, conv updated in place."""
+    else one decode step, the dict of c, n, m, h, conv updated in place.
+
+    With ``tp``, split by heads where ``w_gates``' columns are cut over the
+    group (else the cell runs whole): the rank multiplies its heads'
+    columns of the four gates (``columns`` re-cuts the packed leaf) and
+    runs the recurrence on its heads (``r_gates`` is block-diagonal), with
+    no collective inside the time loop; its part of the outputs is
+    gathered once after it, and in decode its part of the new state,
+    which is whole on every rank. The ffn splits as ``mlp_apply``'s."""
     d = cfg.d_model
     H = cfg.num_heads
     dh = d // H
     bsz, T, _ = x.shape
+    stp = split_over(tp, p["w_gates"].shape[-1], 4 * d)
+    hs, cs = share(stp, H), share(stp, d)  # this rank's heads, channels
+    nh, nc = hs[1] - hs[0], cs[1] - cs[0]
+    gcols = [(g * d + cs[0], g * d + cs[1]) for g in range(4)]
     h0 = L.rms_norm(x, p["ln"], cfg.norm_eps)
     conv_state = None if state is None else state["conv"]
     hc, new_conv = causal_conv(h0, p["conv"], conv_state)
-    hc = F.silu(hc)
-    wx = hc @ p["w_gates"].to(hc.dtype) + p["b_gates"].to(hc.dtype)  # (b,T,4d)
+    hc = copy_to(F.silu(hc), stp)
+    wx = hc @ columns(p["w_gates"], stp, 4 * d, gcols).to(hc.dtype) \
+        + whole_columns(p["b_gates"], stp, gcols).to(hc.dtype)  # (b,T,4nc)
 
-    r = p["r_gates"]
+    r = whole_columns(p["r_gates"], stp, (hs,), dim=1)
 
     def step(carry, wx_t):
         c, n, m, hprev = carry  # (b,H,dh) x3 ... m: (b,H)
         rh = torch.einsum("bhd,ghde->bghe", hprev, r.to(hprev.dtype))
-        rh = rh.reshape(bsz, 4 * d)
-        gates = (wx_t.float() + rh.float()).reshape(bsz, 4, H, dh)
+        rh = rh.reshape(bsz, 4 * nc)
+        gates = (wx_t.float() + rh.float()).reshape(bsz, 4, nh, dh)
         z_t = torch.tanh(gates[:, 0])
         i_l = gates[:, 1]
         f_l = gates[:, 2]
@@ -260,28 +333,40 @@ def slstm_block_apply(p, x, cfg: ModelConfig, state=None):
         return (c_new, n_new, m_new, h_new.to(hprev.dtype)), h_new
 
     if state is None:
-        c0 = torch.zeros((bsz, H, dh), dtype=torch.float32, device=x.device)
-        carry = (c0, c0, torch.full((bsz, H), -1e30, dtype=torch.float32,
+        c0 = torch.zeros((bsz, nh, dh), dtype=torch.float32, device=x.device)
+        carry = (c0, c0, torch.full((bsz, nh), -1e30, dtype=torch.float32,
                                     device=x.device),
-                 torch.zeros((bsz, H, dh), dtype=L.dtype_of(cfg.dtype),
+                 torch.zeros((bsz, nh, dh), dtype=L.dtype_of(cfg.dtype),
                              device=x.device))
-        hs = []
+        hs_t = []
         for t in range(T):
             carry, h_t = step(carry, wx[:, t])
-            hs.append(h_t)
-        hseq = torch.stack(hs, dim=1).reshape(bsz, T, d).to(x.dtype)
+            hs_t.append(h_t)
+        hseq = torch.stack(hs_t, dim=1).reshape(bsz, T, nc).to(x.dtype)
+        hseq = gather_from(hseq, stp, -1)
     else:
-        carry, h_t = step((state["c"], state["n"], state["m"], state["h"]),
-                          wx[:, 0])
+        carry, h_t = step(tuple(take(state[k], 1, (hs,))
+                                for k in ("c", "n", "m", "h")), wx[:, 0])
+        c, n, m, _ = carry
+        if stp is not None:  # every rank's heads, in one call
+            every = gather_from(torch.cat(
+                [c, n, h_t, m[..., None]], dim=-1), stp, 1)
+            c, n, h_t, m = every.split([dh, dh, dh, 1], dim=-1)
+            m = m[..., 0]
+        for key, new in zip(("c", "n", "m", "h"), (c, n, m, h_t)):
+            state[key].copy_(new.to(state[key].dtype))
         hseq = h_t[:, None].reshape(bsz, 1, d).to(x.dtype)
-        for key, new in zip(("c", "n", "m", "h"), carry):
-            state[key].copy_(new)
         state["conv"].copy_(new_conv)
     hseq = L.rms_norm(hseq, p["out_norm"], cfg.norm_eps)
     x = x + hseq
     hf = L.rms_norm(x, p["ln_ffn"], cfg.norm_eps)
-    x = x + L.mlp_apply(p["ffn"], hf)
+    x = x + L.mlp_apply(p["ffn"], hf, tp, _ffn_width(d))
     return x, state
+
+
+def _ffn_width(d: int) -> int:
+    """The sLSTM block's gated FFN width (pf = 4/3, a multiple of 64)."""
+    return int(d * 4 / 3 // 64 * 64)
 
 
 # ---------------------------------------------------------------------------
@@ -327,17 +412,37 @@ class XLSTMModel:
                                                cfg)
         return params
 
+    def tp_whole(self, size: int):
+        """Rule 1 over a ``model`` group of ``size`` ranks, as a tree like
+        the parameters: True for a leaf that runs whole (the step layer
+        gathers it over ``model`` where the plan splits it). The sLSTM
+        block's leaves but its ffn where the heads do not divide over the
+        group (heads are never cut mid-head). The mLSTM blocks always run
+        split over their inner channels (``mlstm_block_apply``), and the
+        rest as the plan lays it out."""
+        heads = self.cfg.num_heads % size != 0
+
+        def walk(tree, path):
+            if isinstance(tree, dict):
+                return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            return heads and path[0] == "slstm" and path[1] != "ffn"
+
+        return walk(self.param_axes(), ())
+
     # -- forward --------------------------------------------------------
-    def forward(self, params, batch):
+    def forward(self, params, batch, tp=None):
+        """-> (logits, aux 0); with ``tp`` (the parameters this rank's
+        shards over it), the logits of this rank's vocabulary columns
+        where the vocabulary splits."""
         cfg = self.cfg
         x = L.embed_lookup(params["embed"], batch["tokens"], cfg,
-                           L.dtype_of(cfg.dtype))
+                           L.dtype_of(cfg.dtype), tp)
 
         def seg_body(mp, sp, x):
             for layer_p in unstacked(mp):
-                x, _ = mlstm_block_apply(layer_p, x, cfg)
+                x, _ = mlstm_block_apply(layer_p, x, cfg, tp=tp)
             if self.has_slstm:
-                x, _ = slstm_block_apply(sp, x, cfg)
+                x, _ = slstm_block_apply(sp, x, cfg, tp=tp)
             return x
 
         body = L.remat(seg_body, "none" if cfg.remat == "none" else "full")
@@ -345,12 +450,13 @@ class XLSTMModel:
             else [None] * self.n_segments
         for mp, sp in zip(unstacked(params["mlstm"]), slstm):
             x = body(mp, sp, x)
-        logits = L.lm_logits(params["embed"], x, cfg)
+        logits = L.lm_logits(params["embed"], x, cfg, tp)
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def loss(self, params, batch):
-        logits, _ = self.forward(params, batch)
-        ce = L.cross_entropy(logits, batch["targets"])
+    def loss(self, params, batch, tp=None):
+        logits, _ = self.forward(params, batch, tp)
+        ce = L.cross_entropy(logits, batch["targets"], tp=tp,
+                             vocab_size=self.cfg.vocab_size)
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                                  device=ce.device)}
 
@@ -409,18 +515,20 @@ class XLSTMModel:
             cache["slstm"]["m"].fill_(-1e30)
         return cache
 
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch, tp=None):
         """One token: batch = {tokens: (b,1), pos}. Returns (logits,
-        cache): the state is updated in place, so the step consumes it."""
+        cache): the state is updated in place, so the step consumes it.
+        With ``tp``, the cache holds this rank's shards of the state
+        (``cache_axes``: the mLSTM's C and n by the key dim)."""
         cfg = self.cfg
         x = L.embed_lookup(params["embed"], batch["tokens"], cfg,
-                           L.dtype_of(cfg.dtype))
+                           L.dtype_of(cfg.dtype), tp)
         slstm = zip(unstacked(params["slstm"]), unstacked(cache["slstm"])) \
             if self.has_slstm else [(None, None)] * self.n_segments
         for mp, mc, (sp, sc) in zip(unstacked(params["mlstm"]),
                                     unstacked(cache["mlstm"]), slstm):
             for lp, lc in zip(unstacked(mp), unstacked(mc)):
-                x, _ = mlstm_block_apply(lp, x, cfg, state=lc)
+                x, _ = mlstm_block_apply(lp, x, cfg, state=lc, tp=tp)
             if self.has_slstm:
-                x, _ = slstm_block_apply(sp, x, cfg, state=sc)
-        return L.lm_logits(params["embed"], x, cfg), cache
+                x, _ = slstm_block_apply(sp, x, cfg, state=sc, tp=tp)
+        return L.lm_logits(params["embed"], x, cfg, tp), cache

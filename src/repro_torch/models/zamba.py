@@ -6,6 +6,12 @@ Training uses the chunked SSD scan; decode keeps O(1) SSM state per block
 plus a KV cache only for the shared-attention applications. ``ssd_chunked``
 is plain jnp in the reference, so here it is plain torch (a loop over
 chunks for its scan). ``decode_step`` writes its cache in place.
+
+``forward``, ``loss`` and ``decode_step`` take an optional ``tp``, the
+``model`` group of a mesh (``sharding/tensor_parallel.py``), and the
+parameters as this rank's shards over it: the Mamba blocks split by SSM
+heads (``mamba_block_apply``), the shared block, the embedding, head and
+loss as the transformer's. ``tp_whole`` says which leaves run whole.
 """
 from __future__ import annotations
 
@@ -21,6 +27,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import input_specs, unstacked
 from repro_torch.models.xlstm import causal_conv
+from repro_torch.sharding.tensor_parallel import (columns, copy_to,
+                                                  gather_from, reduce_from,
+                                                  share, split_over, splits,
+                                                  take, whole_columns)
 
 # ---------------------------------------------------------------------------
 # Mamba2 SSD core
@@ -118,37 +128,71 @@ def mamba_block_init(init: L.Init, cfg: ModelConfig):
             "w_out": init.dense((di, d), dt, axes=("ssm_inner", "embed"))}
 
 
-def mamba_block_apply(p, x, cfg: ModelConfig, state=None):
+def mamba_block_apply(p, x, cfg: ModelConfig, state=None, tp=None):
     """state None for training (chunked); for a decode step, the dict of
-    S and conv, updated in place. Returns (x, state)."""
+    S and conv, updated in place. Returns (x, state).
+
+    With ``tp``, split by SSM heads where ``w_out``'s rows are this rank's
+    (its heads' inner channels; else the block runs whole): the rank
+    multiplies its heads' columns of z, x and dt and all of B and C
+    (``columns`` re-cuts the packed ``w_in`` and ``conv``), runs the scan
+    on its heads with their entries of ``A_log``, ``D`` and ``dt_bias``
+    (whole leaves, read through ``copy_to``), normalises with the mean of
+    squares all-reduced over the group, and ends in the row-parallel
+    ``w_out``. In decode the conv state is the
+    plan's contiguous cut of [x B C]: the new token's x is gathered, the
+    rank convolves its state's channels, and the outputs are gathered, so
+    no state crosses the group."""
     d = cfg.d_model
     di = cfg.ssm_expand * d
     N = cfg.ssm_state
     H = di // cfg.ssm_head_dim
     dh = cfg.ssm_head_dim
     bsz, T, _ = x.shape
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    proj = h @ p["w_in"].to(h.dtype)
-    z, xin, Bv, Cv, dt_raw = torch.split(proj, [di, di, N, N, H], dim=-1)
-    conv_in = torch.cat([xin, Bv, Cv], dim=-1)
-    conv_state = None if state is None else state["conv"]
-    conv_out, new_conv = causal_conv(conv_in, p["conv"], conv_state)
-    conv_out = F.silu(conv_out)
-    xin, Bv, Cv = torch.split(conv_out, [di, N, N], dim=-1)
-    dtv = F.softplus(dt_raw.float() + p["dt_bias"][None, None, :])
-    A = -torch.exp(p["A_log"])
-    xh = xin.reshape(bsz, T, H, dh)
+    group, tp = tp, split_over(tp, p["w_out"].shape[-2], di)
+    hs, cs = share(tp, H), share(tp, di)  # this rank's heads, channels
+    nh, nc = hs[1] - hs[0], cs[1] - cs[0]
+    xbc = (cs, (di, di + 2 * N))  # its channels of [x B C]
+    h = copy_to(L.rms_norm(x, p["ln"], cfg.norm_eps), tp)
+    w_in = columns(p["w_in"], tp, 2 * di + 2 * N + H, (
+        cs, (di + cs[0], di + cs[1]), (2 * di, 2 * di + 2 * N),
+        (2 * di + 2 * N + hs[0], 2 * di + 2 * N + hs[1])))
+    proj = h @ w_in.to(h.dtype)
+    z, xin, Bv, Cv, dt_raw = torch.split(proj, [nc, nc, N, N, nh], dim=-1)
     if state is None:
-        y = ssd_chunked(xh, dtv, A, Bv, Cv, p["D"], cfg.ssm_chunk)
+        conv_in = torch.cat([xin, Bv, Cv], dim=-1)
+        conv_out, new_conv = causal_conv(
+            conv_in, columns(p["conv"], tp, di + 2 * N, xbc), None)
+    else:
+        # the state's channels (cut as the plan cuts them, whether or not
+        # the block runs split), then every rank's outputs
+        conv_in = torch.cat([gather_from(xin, tp, -1), Bv, Cv], dim=-1)
+        ctp = split_over(group, state["conv"].shape[-1], di + 2 * N)
+        ch = (share(ctp, di + 2 * N),)
+        conv_w = p["conv"] if splits(ctp, p["conv"].shape[-1], di + 2 * N) \
+            else take(p["conv"], -1, ch)
+        conv_out, new_conv = causal_conv(take(conv_in, -1, ch), conv_w,
+                                         state["conv"])
+        conv_out = take(gather_from(conv_out, ctp, -1), -1, xbc)
+    conv_out = F.silu(conv_out)
+    xin, Bv, Cv = torch.split(conv_out, [nc, N, N], dim=-1)
+    dtv = F.softplus(dt_raw.float()
+                     + whole_columns(p["dt_bias"], tp, (hs,))[None, None, :])
+    A = -torch.exp(whole_columns(p["A_log"], tp, (hs,)))
+    D = whole_columns(p["D"], tp, (hs,))
+    xh = xin.reshape(bsz, T, nh, dh)
+    if state is None:
+        y = ssd_chunked(xh, dtv, A, Bv, Cv, D, cfg.ssm_chunk)
     else:
         S, y1 = ssd_step(state["S"], xh[:, 0], dtv[:, 0], A, Bv[:, 0],
-                         Cv[:, 0], p["D"])
+                         Cv[:, 0], D)
         y = y1[:, None]
         state["S"].copy_(S)
         state["conv"].copy_(new_conv)
-    y = y.reshape(bsz, T, di)
-    y = L.rms_norm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)
-    out = y @ p["w_out"].to(y.dtype)
+    y = y.reshape(bsz, T, nc)
+    y = L.rms_norm(y, whole_columns(p["out_norm"], tp, (cs,)), cfg.norm_eps,
+                   tp) * F.silu(z)
+    out = reduce_from(y @ p["w_out"].to(y.dtype), tp)
     return x + out, state
 
 
@@ -184,36 +228,47 @@ def shared_lora_init(init: L.Init, cfg: ModelConfig):
     return p
 
 
-def _lora_adjusted(attn_p, lora_p):
-    """Merge per-application lora into attention weights view."""
+def _lora_adjusted(attn_p, lora_p, cfg: ModelConfig, tp=None):
+    """Merge per-application lora into attention weights view. With
+    ``tp``, a ``w*_b`` cut over the group with its weight (by heads) gives
+    this rank's columns of the merged weight, and the whole ``w*_a`` it
+    multiplies enters through ``copy_to``."""
     if not lora_p:
         return attn_p
     p = dict(attn_p)
-    for nm in ("wq", "wk", "wv"):
-        p[nm] = attn_p[nm] + (lora_p[f"{nm}_a"] @ lora_p[f"{nm}_b"]).to(
-            attn_p[nm].dtype)
+    hd = cfg.head_dim
+    for nm, heads in (("wq", cfg.num_heads), ("wk", cfg.num_kv_heads),
+                      ("wv", cfg.num_kv_heads)):
+        a, b = lora_p[f"{nm}_a"], lora_p[f"{nm}_b"]
+        if splits(tp, b.shape[-1], heads * hd):
+            a = copy_to(a, tp)
+        p[nm] = attn_p[nm] + (a @ b).to(attn_p[nm].dtype)
     return p
 
 
-def shared_attn_apply(p, lora_p, x, x0, cfg: ModelConfig, *, positions):
+def shared_attn_apply(p, lora_p, x, x0, cfg: ModelConfig, *, positions,
+                      tp=None):
+    """With ``tp``, the attention and the MLP split as the transformer's
+    (``models/layers.py``)."""
     h = L.rms_norm(torch.cat([x, x0], dim=-1), p["ln"], cfg.norm_eps)
     h = h @ p["w_in"].to(h.dtype)
-    ap = _lora_adjusted(p["attn"], lora_p)
+    ap = _lora_adjusted(p["attn"], lora_p, cfg, tp)
     a = L.attn_apply(ap, h, cfg, positions=positions,
-                     block_causal=cfg.block_causal)
+                     block_causal=cfg.block_causal, tp=tp)
     x = x + a
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h2)
+    return x + L.mlp_apply(p["mlp"], h2, tp, cfg.d_ff)
 
 
-def shared_attn_decode(p, lora_p, x, x0, kv_cache, cfg: ModelConfig, *, pos):
+def shared_attn_decode(p, lora_p, x, x0, kv_cache, cfg: ModelConfig, *, pos,
+                       tp=None):
     h = L.rms_norm(torch.cat([x, x0], dim=-1), p["ln"], cfg.norm_eps)
     h = h @ p["w_in"].to(h.dtype)
-    ap = _lora_adjusted(p["attn"], lora_p)
-    o, kv_cache = L.attn_decode(ap, h, kv_cache, cfg, pos=pos)
+    ap = _lora_adjusted(p["attn"], lora_p, cfg, tp)
+    o, kv_cache = L.attn_decode(ap, h, kv_cache, cfg, pos=pos, tp=tp)
     x = x + o
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h2), kv_cache
+    return x + L.mlp_apply(p["mlp"], h2, tp, cfg.d_ff), kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +314,30 @@ class ZambaModel:
                                               cfg)
         return params
 
+    def tp_whole(self, size: int):
+        """Rule 1 over a ``model`` group of ``size`` ranks, as a tree like
+        the parameters: True for a leaf that runs whole (the step layer
+        gathers it over ``model`` where the plan splits it). Every leaf of
+        the Mamba blocks where the SSM heads do not divide over the group
+        (heads are never cut mid-head); the shared attention and its LoRA
+        ``w*_b`` by the transformer's rule (``TransformerLM.tp_whole``).
+        The rest runs as the plan lays it out."""
+        cfg = self.cfg
+        ssm = (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim) % size != 0
+        heads = cfg.num_heads % size != 0
+        kv = cfg.num_kv_heads % size != 0
+
+        def walk(tree, path):
+            if isinstance(tree, dict):
+                return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            if path[0] in ("mamba", "tail"):
+                return ssm
+            if path[0] == "lora" or path[:2] == ("shared", "attn"):
+                return heads or (kv and path[-1][:2] in ("wk", "wv"))
+            return False
+
+        return walk(self.param_axes(), ())
+
     def _groups(self, params):
         """(mamba group, that application's LoRA) per application."""
         lora = unstacked(params["lora"]) if params["lora"] \
@@ -266,10 +345,13 @@ class ZambaModel:
         return zip(unstacked(params["mamba"]), lora)
 
     # -- forward --------------------------------------------------------
-    def forward(self, params, batch):
+    def forward(self, params, batch, tp=None):
+        """-> (logits, aux 0); with ``tp`` (the parameters this rank's
+        shards over it), the logits of this rank's vocabulary columns
+        where the vocabulary splits."""
         cfg = self.cfg
         x = L.embed_lookup(params["embed"], batch["tokens"], cfg,
-                           L.dtype_of(cfg.dtype))
+                           L.dtype_of(cfg.dtype), tp)
         x0 = x
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
@@ -277,13 +359,14 @@ class ZambaModel:
         mode = "none" if cfg.remat == "none" else "full"
 
         def group_body(mp, lp, x):
-            x = shared_attn_apply(shared, lp, x, x0, cfg, positions=positions)
+            x = shared_attn_apply(shared, lp, x, x0, cfg, positions=positions,
+                                  tp=tp)
             for layer_p in unstacked(mp):
-                x, _ = mamba_block_apply(layer_p, x, cfg)
+                x, _ = mamba_block_apply(layer_p, x, cfg, tp=tp)
             return x
 
         def t_body(layer_p, x):
-            return mamba_block_apply(layer_p, x, cfg)[0]
+            return mamba_block_apply(layer_p, x, cfg, tp=tp)[0]
 
         body = L.remat(group_body, mode)
         for mp, lp in self._groups(params):
@@ -292,12 +375,13 @@ class ZambaModel:
             t_body = L.remat(t_body, mode)
             for layer_p in unstacked(params["tail"]):
                 x = t_body(layer_p, x)
-        logits = L.lm_logits(params["embed"], x, cfg)
+        logits = L.lm_logits(params["embed"], x, cfg, tp)
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def loss(self, params, batch):
-        logits, _ = self.forward(params, batch)
-        ce = L.cross_entropy(logits, batch["targets"])
+    def loss(self, params, batch, tp=None):
+        logits, _ = self.forward(params, batch, tp)
+        ce = L.cross_entropy(logits, batch["targets"], tp=tp,
+                             vocab_size=self.cfg.vocab_size)
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                                  device=ce.device)}
 
@@ -346,23 +430,29 @@ class ZambaModel:
                                                device=self.device),
                          self.cache_spec(batch_size, max_seq))
 
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch, tp=None):
         """One token: batch = {tokens: (b,1), pos: int}. Returns (logits,
-        cache): the cache is updated in place, so the step consumes it."""
+        cache): the cache is updated in place, so the step consumes it.
+        With ``tp``, the cache holds this rank's shards of the state
+        (``cache_axes``) and of the attention cache's positions where
+        ``tp.cache_split`` says so."""
         cfg = self.cfg
         pos = int(batch["pos"])
         x = L.embed_lookup(params["embed"], batch["tokens"], cfg,
-                           L.dtype_of(cfg.dtype))
+                           L.dtype_of(cfg.dtype), tp)
         x0 = x
         shared = params["shared"]
         for (mp, lp), mc, kvc in zip(self._groups(params),
                                      unstacked(cache["mamba"]),
                                      unstacked(cache["attn_kv"])):
-            x, _ = shared_attn_decode(shared, lp, x, x0, kvc, cfg, pos=pos)
+            x, _ = shared_attn_decode(shared, lp, x, x0, kvc, cfg, pos=pos,
+                                      tp=tp)
             for layer_p, layer_c in zip(unstacked(mp), unstacked(mc)):
-                x, _ = mamba_block_apply(layer_p, x, cfg, state=layer_c)
+                x, _ = mamba_block_apply(layer_p, x, cfg, state=layer_c,
+                                         tp=tp)
         if self.trailing:
             for layer_p, layer_c in zip(unstacked(params["tail"]),
                                         unstacked(cache["tail"])):
-                x, _ = mamba_block_apply(layer_p, x, cfg, state=layer_c)
-        return L.lm_logits(params["embed"], x, cfg), cache
+                x, _ = mamba_block_apply(layer_p, x, cfg, state=layer_c,
+                                         tp=tp)
+        return L.lm_logits(params["embed"], x, cfg, tp), cache

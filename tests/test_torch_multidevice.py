@@ -52,7 +52,7 @@ from repro.configs.base import TrainConfig as JTrain  # noqa: E402
 from repro.optim.optimizers import adamw_init as jadamw_init  # noqa: E402
 from repro_torch import _tree  # noqa: E402
 from repro_torch.checkpoint import save_checkpoint  # noqa: E402
-from repro_torch.configs import ARCH_ORDER, smoke_config  # noqa: E402
+from repro_torch.configs import ARCH_ORDER  # noqa: E402
 from repro_torch.configs.base import (MULTI_POD_MESH, SMOKE_MESH,  # noqa: E402
                                       ShapeConfig, TrainConfig)
 from repro_torch.launch.mesh import make_mesh, make_smoke_mesh  # noqa: E402
@@ -203,10 +203,11 @@ def load(path: Path):
     return torch.load(path, weights_only=False)
 
 
-def spawn(scenario: str, world: int, out: Path) -> list:
+def spawn(scenario: str, world: int, out: Path,
+          timeout: float = SPAWN_TIMEOUT) -> list:
     """``world`` ranks of ``scenario``, meeting through a file in ``out``;
-    -> each rank's checks. Every rank is waited for, or killed at the
-    timeout."""
+    -> each rank's checks. Every rank is waited for, or killed at
+    ``timeout`` seconds."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONWARNINGS="ignore")
     log = open(out / f"{scenario}.log", "w")
     try:
@@ -216,7 +217,7 @@ def spawn(scenario: str, world: int, out: Path) -> list:
             stderr=subprocess.STDOUT) for r in range(world)]
         try:
             for p in procs:
-                p.wait(timeout=SPAWN_TIMEOUT)
+                p.wait(timeout=timeout)
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -513,23 +514,18 @@ def test_optimizers_on_dtensor_leaves(train):
 # -- no quiet fallback ------------------------------------------------------------
 
 def test_no_fallback(train):
-    """A mesh of the wrong size or backend raises; so do prefill and decode
-    of the recurrent families (zamba2, xLSTM) on (2, 2), naming ROADMAP A's
-    item 20 (their ``ssm_inner`` splits), while the transformer family's
-    build there (``tests/test_torch_tensor_parallel.py`` runs them)."""
+    """A mesh of the wrong size or backend raises, while every arch's
+    prefill and decode build on (2, 2) (``tests/test_torch_tensor_parallel.py``
+    and ``tests/test_torch_tensor_parallel_recurrent.py`` run them)."""
     for c in train["checks"]:
         r = c["raised"]
         assert "needs 8 ranks" in r["world_size"], r
         assert "needs nccl" in r["cuda_on_gloo"], r
         assert "needs nccl" in r["init_cuda_on_gloo"], r
         for arch in ARCH_ORDER:
-            recurrent = smoke_config(arch).family in ("ssm", "hybrid")
             for kind in ("prefill", "decode"):
                 got = r[f"{arch}/{kind}"]
-                if recurrent:
-                    assert "item 20" in (got or ""), (arch, kind, got)
-                else:
-                    assert got is None, (arch, kind, got)
+                assert got is None, (arch, kind, got)
     # no group here: a mesh of several devices cannot be made
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(MULTI_POD_MESH, "cpu")

@@ -120,8 +120,10 @@ names = ("data", "model")
 
 
 def f32(arch):
-    return dataclasses.replace(smoke_config(arch), dtype="float32",
-                               param_dtype="float32")
+    name, *sets = arch.split("@")  # arch@field=n: a variant of the config
+    fields = {k: int(v) for k, v in (x.split("=") for x in sets)}
+    return dataclasses.replace(smoke_config(name), dtype="float32",
+                               param_dtype="float32", **fields)
 
 
 def mesh_of(shape):
@@ -153,16 +155,27 @@ for key, (shape, arch, seq) in spec["train"].items():
     opt = adamw_init(params, tcfg)
     bz = np.load(os.path.join(d, f"batches_{arch}.npz"))
     metrics = []
+    name = key.replace("/", "_")
+
+    def state(params, opt):
+        return {f"{t}{i}": np.asarray(l) for t, tree in
+                (("p", params), ("m", opt.m), ("v", opt.v))
+                for i, l in enumerate(jax.tree.leaves(tree))}
+
     with mesh:
         for s in range(spec["steps"]):
             bt = {k.split("/", 1)[1]: jnp.asarray(bz[k]) for k in bz.files
                   if k.startswith(f"{s}/")}
             params, opt, m = fn(params, opt, bt, jnp.int32(s))
             metrics.append({k: float(v) for k, v in m.items()})
-    name = key.replace("/", "_")
-    out = {f"{t}{i}": np.asarray(l) for t, tree in
-           (("p", params), ("m", opt.m), ("v", opt.v))
-           for i, l in enumerate(jax.tree.leaves(tree))}
+            if spec.get("states") and s + 1 < spec["steps"]:
+                # the state after each step, for steps run again from it
+                tmp = os.path.join(d, f"tmp_{name}.npz")
+                np.savez(tmp, count=np.asarray(opt.count),
+                         **state(params, opt))
+                os.replace(tmp, os.path.join(
+                    d, f"ref_state_{name}_{s + 1}.npz"))
+    out = state(params, opt)
     np.savez(os.path.join(d, f"ref_train_{name}.npz"),
              count=np.asarray(opt.count), **out)
     with open(os.path.join(d, f"ref_train_{name}.json"), "w") as f:
@@ -220,9 +233,17 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def variant(arch):
+    """``arch`` and the config fields an ``arch@field=n@...`` name sets (a
+    variant of its smoke config)."""
+    name, *sets = arch.split("@")
+    return name, {k: int(v) for k, v in (x.split("=") for x in sets)}
+
+
 def f32_smoke(arch):
-    return dataclasses.replace(smoke_config(arch), dtype="float32",
-                               param_dtype="float32")
+    name, fields = variant(arch)
+    return dataclasses.replace(smoke_config(name), dtype="float32",
+                               param_dtype="float32", **fields)
 
 
 def decode_inputs(cfg, seed, seq):
@@ -284,8 +305,10 @@ def load(path: Path):
     return torch.load(path, weights_only=False)
 
 
-def reference_train(tp, key):
-    arch = TRAIN_RUNS[key][1]
+def reference_train(tp, key, arch=None):
+    """The reference's parameters, moments, metrics and step count after
+    the train run ``key`` (of ``arch``: by default ``TRAIN_RUNS``')."""
+    arch = arch or TRAIN_RUNS[key][1]
     jp = jax.tree.map(jnp.asarray, tp["pairs"][arch][1])
     odef = jax.tree.structure(jadamw_init(jp, JTrain(**TRAIN)).m)
     name = key.replace("/", "_")
@@ -481,11 +504,14 @@ def test_decode_matches_reference_and_one_device(tp, key):
 def test_one_rank_is_bit_for_bit_one_device(tmp_path):
     """The tensor-parallel code over a group of one rank (every split
     whole, every collective a one-rank call): the train step (qwen3-8b,
-    granite-moe), prefill and 8 decode steps bit for bit the one-device
-    code from the same state."""
+    granite-moe, zamba2, xLSTM), prefill and 8 decode steps (qwen3-8b,
+    zamba2, xLSTM) bit for bit the one-device code from the same state."""
     (c,) = spawn("tp1", 1, tmp_path)
-    assert c["same"] == {"train/qwen3-8b": True, f"train/{MOE}": True,
-                         "prefill": True, "decode": True}, c["same"]
+    recurrent = ("zamba2-1.2b", "xlstm-1.3b")
+    want = {f"train/{a}": True for a in ("qwen3-8b", MOE) + recurrent}
+    want.update({f"{k}/{a}": True for k in ("prefill", "decode")
+                 for a in ("qwen3-8b",) + recurrent})
+    assert c["same"] == want, c["same"]
 
 
 # -- rule 1 at full width, no ranks -------------------------------------------
@@ -495,7 +521,8 @@ def test_rule_one_at_full_width():
     still cuts ``wk`` into half heads), so ``wk``/``wv`` run whole;
     llama4-maverick's 40 q heads do not, so its attention runs whole;
     granite-moe's 32 experts split, its router and (8 kv heads) its
-    ``wk``/``wv`` run whole."""
+    ``wk``/``wv`` run whole; zamba2 runs every block split (64 SSM heads);
+    xLSTM's 4 heads do not divide, so its sLSTM cells run whole."""
     def whole_paths(arch):
         model = build_model(get_config(arch), device="meta")
         return {p for p, w in zip(_tree_paths(model.param_axes()),
@@ -510,10 +537,27 @@ def test_rule_one_at_full_width():
     assert whole_paths(MOE) == {"seg0/b0_moe/moe/router",
                                 "seg0/b0_moe/attn/wk", "seg0/b0_moe/attn/wv"}
     cfg = get_config("qwen3-8b")
-    spec = MeshPlan(MeshConfig((16, 16), NAMES)).spec(
-        ("layers", "embed", "kv_heads"), (36, 4096, 8 * 128))
+    plan = MeshPlan(MeshConfig((16, 16), NAMES))
+    spec = plan.spec(("layers", "embed", "kv_heads"), (36, 4096, 8 * 128))
     assert spec == (None, "data", "model")  # 64 columns a rank: half a head
     assert cfg.num_kv_heads % 16
+    # zamba2: 64 SSM heads, 32 q and kv heads: every block splits, and
+    # w_in's plan cut (524 of its 8,384 packed columns a rank) is re-cut
+    # to the rank's 4 heads' z, x and dt plus B and C
+    assert whole_paths("zamba2-1.2b") == set()
+    assert plan.spec(("layers", "layers", "embed", "ssm_inner"),
+                     (6, 6, 2048, 8384)) == (None, None, "data", "model")
+    # xLSTM: 4 heads do not divide over 16, so the sLSTM blocks but their
+    # ffn run whole; the mLSTM blocks split over their channels, their
+    # decode state by the key dim (1024 / 16 rows of C a rank)
+    xl = whole_paths("xlstm-1.3b")
+    assert xl == {f"slstm/{n}" for n in ("ln", "conv", "w_gates", "r_gates",
+                                          "b_gates", "out_norm", "ln_ffn")}
+    xmodel = build_model(get_config("xlstm-1.3b"), device="meta")
+    c_axes = xmodel.cache_axes()["mlstm"]["C"]
+    c_shape = tuple(xmodel.cache_spec(8, 64)["mlstm"]["C"].shape)
+    assert c_shape[-2:] == (1024, 1024)
+    assert plan.spec(c_axes, c_shape)[4] == "model"
 
 
 @pytest.mark.parametrize("heads,kv,p,rank,want", [

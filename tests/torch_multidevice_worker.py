@@ -28,12 +28,21 @@ what the ranks found: rank 0 writes the gathered trees, every rank its own
   three and hubert-xlarge) and 8 decode steps on (2, 2) (qwen3-8b,
   granite-moe) from the test's cache.
 - ``tp1``, 1 rank on (1, 1): the same code over a one-rank group, bit for
-  bit the one-device steps.
+  bit the one-device steps (the transformer family and the recurrent
+  families).
+- ``tpr``, 4 ranks (``tests/test_torch_tensor_parallel_recurrent.py``):
+  zamba2's and xLSTM's train steps on (2, 2) and (1, 4) with what each
+  rank multiplied, re-cut and gathered on its first step; prefill on
+  (2, 2) and the model collectives of prefill at two lengths; 8 decode
+  steps on (2, 2) and (1, 4) from the test's state, the first step's
+  model payloads noted; each train step again from the reference's
+  state before it.
 """
 import dataclasses
 import importlib.util
 import json
 import sys
+import time
 import traceback
 from pathlib import Path
 
@@ -56,8 +65,10 @@ from repro_torch.launch.step_builders import (bundle_for,  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.optim import adamw_init, sgd_init, sgd_update  # noqa: E402
+from repro_torch.optim.optimizers import OptState  # noqa: E402
 from repro_torch.sharding import (MeshPlan, Sharder, Sharding,  # noqa: E402
                                   constrain, gather_tree, place, place_tree)
+from repro_torch.sharding import tensor_parallel as tpar  # noqa: E402
 
 POD_AXES = ("pod", "data", "model")
 ROUNDS = 2
@@ -70,8 +81,12 @@ MOE, MOE_SEQ = "granite-moe-1b-a400m", 32
 
 
 def f32_smoke(arch):
-    return dataclasses.replace(smoke_config(arch), dtype="float32",
-                               param_dtype="float32")
+    """``arch``'s smoke config in f32; ``arch@field=n@...`` also sets those
+    fields (a variant of the config)."""
+    name, *sets = arch.split("@")
+    fields = {k: int(v) for k, v in (x.split("=") for x in sets)}
+    return dataclasses.replace(smoke_config(name), dtype="float32",
+                               param_dtype="float32", **fields)
 
 
 def twin():
@@ -347,9 +362,8 @@ def train_scenario(out: Path, rank: int, checks: dict) -> None:
     expect("cuda_on_gloo", RuntimeError,
            lambda: make_mesh(mcfg, "cuda"))
     expect("init_cuda_on_gloo", RuntimeError, lambda: _dist.init("cuda"))
-    # prefill and decode on the mesh: the transformer family builds (at a
-    # batch whose MoE routing groups a data rank holds whole), the
-    # recurrent families raise
+    # prefill and decode on the mesh: every arch builds (at a batch whose
+    # MoE routing groups a data rank holds whole)
     for arch in ARCH_ORDER:
         for kind, rows in (("prefill", BATCH), ("decode", SERVE_ROWS)):
             expect(f"{arch}/{kind}", NotImplementedError, lambda: bundle_for(
@@ -399,10 +413,11 @@ class MatmulOperands(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def recording_group_calls(group, log: dict):
+def recording_group_calls(group, log: dict, sent: list = None):
     """Count the all_reduce / all_gather / all_gather_into_tensor /
-    reduce_scatter_tensor calls made over ``group``; -> the originals, to
-    put back."""
+    reduce_scatter_tensor calls made over ``group`` (and note in ``sent``
+    the shape of the tensor each one sends); -> the originals, to put
+    back."""
     dist = torch.distributed
     orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather",
                                           "all_gather_into_tensor",
@@ -412,6 +427,9 @@ def recording_group_calls(group, log: dict):
         def call(*args, group=None, **kw):
             if group is not None and group == want:
                 log[name] = log.get(name, 0) + 1
+                if sent is not None:
+                    t = args[0] if name == "all_reduce" else args[1]
+                    sent.append([name, list(t.shape)])
             return orig[name](*args, group=group, **kw)
         return call
 
@@ -421,14 +439,41 @@ def recording_group_calls(group, log: dict):
     return orig
 
 
+def recording_recuts(owners: dict, log: dict):
+    """Wrap ``tensor_parallel._Recut``'s forward: a re-cut leaf's output
+    (the columns the rank multiplies) joins ``owners`` under the leaf's
+    path, kept alive while the wrapper is, and its shape is noted in
+    ``log``; -> the original, to put back."""
+    orig, alive = tpar._Recut.forward, []
+
+    def forward(ctx, w, tp, dim, pieces):
+        out = orig(ctx, w, tp, dim, pieces)
+        path = owners.get(w.untyped_storage().data_ptr())
+        if path is not None:
+            alive.append(out)  # its storage's address is not reused
+            owners[out.untyped_storage().data_ptr()] = path
+            log.setdefault(path, []).append(list(out.shape))
+        return out
+
+    tpar._Recut.forward = staticmethod(forward)
+    return orig
+
+
 def split_record(bundle, mesh, first_step):
     """Run ``first_step()`` (the bundle's first train step) noting, on this
     rank: the shape and bytes of every parameter as the rank computes with
-    it, the matmul operands that are views of them, and the collectives
-    over the ``model`` group inside the forward and backward."""
+    it, the matmul operands that are views of them (or of the columns a
+    re-cut leaf gave), the re-cut leaves' shapes, the collectives over
+    the ``model`` group inside the forward and backward, and the gradient
+    the optimizer is given (gathered)."""
     paths = sb._tree_paths(bundle.model.param_axes())
-    runs, rec = [], {"calls": {}}
+    runs, rec = [], {"calls": {}, "recut": {}}
     orig_cp, orig_vg = sb._Compute.params, sb.value_and_grad
+    orig_up, grads = sb.adamw_update, []
+
+    def adamw_update(g, *args, **kw):
+        grads.append(host(g))  # every rank gathers
+        return orig_up(g, *args, **kw)
 
     def compute_params(compute, leaves):
         runs.append(orig_cp(compute, leaves))
@@ -439,20 +484,25 @@ def split_record(bundle, mesh, first_step):
                   for p, t in zip(paths, runs[-1])}
         orig = recording_group_calls(mesh.device_mesh.get_group("model"),
                                      rec["calls"])
+        orig_recut = recording_recuts(owners, rec["recut"])
         try:
             with MatmulOperands(owners) as mode:
                 out = orig_vg(model, params, batch, **kw)
         finally:
             for n, f in orig.items():
                 setattr(torch.distributed, n, f)
+            tpar._Recut.forward = staticmethod(orig_recut)
         rec["operands"] = mode.seen
         return out
 
     sb._Compute.params, sb.value_and_grad = compute_params, value_and_grad
+    sb.adamw_update = adamw_update
     try:
         out = first_step()
     finally:
         sb._Compute.params, sb.value_and_grad = orig_cp, orig_vg
+        sb.adamw_update = orig_up
+    rec["grads"] = grads[0]
     rec["record"] = bundle.tp_record
     rec["run_shapes"] = {p: list(t.shape) for p, t in zip(paths, runs[0])}
     rec["run_bytes"] = sum(t.numel() * t.element_size() for t in runs[0])
@@ -476,20 +526,23 @@ def tp_train(out: Path, arch: str, seq: int, mesh, mcfg, checks, key):
         run = lambda: bundle.fn(p, o, batch, step)  # noqa: E731
         if step == 0:
             (p, o, m), checks["split"][key] = split_record(bundle, mesh, run)
+            grad0 = checks["split"][key].pop("grads")
         else:
             p, o, m = run()
         metrics.append({k: float(v) for k, v in m.items()})
     gp, go = host(p), host(o)
     checks["shards_match_gathered"] &= local_matches(p, gp)
     if torch.distributed.get_rank() == 0:
-        torch.save({"params": gp, "opt": go, "metrics": metrics},
+        torch.save({"params": gp, "opt": go, "metrics": metrics,
+                    "grad0": grad0},
                    out / f"tp_train_{key.replace('/', '_')}.pt")
 
 
-def tp_prefill(out: Path, mesh, mcfg, checks, rank: int) -> None:
-    """Prefill (``TP_PREFILL``) on ``mesh`` from the test's parameters and
+def tp_prefill(out: Path, mesh, mcfg, checks, rank: int,
+               archs=TP_PREFILL) -> None:
+    """Prefill (``archs``) on ``mesh`` from the test's parameters and
     prompts."""
-    for arch in TP_PREFILL:
+    for arch in archs:
         params = torch.load(out / f"params_{arch}.pt")
         z = np.load(out / f"prefill_{arch}.npz")
         batch = {k: torch.from_numpy(z[k]) for k in z.files}
@@ -518,12 +571,22 @@ def tp_decode(out: Path, mesh, mcfg, checks, rank: int, runs: dict) -> None:
         b = bundle_for("decode", f32_smoke(arch),
                        ShapeConfig("d", seq, SERVE_ROWS, "decode"),
                        mesh, mcfg)
-        logits = []
+        logits, payloads = [], []
         for i in range(DECODE_STEPS):
-            lg, cache = b.fn(params, cache, {
-                "tokens": torch.from_numpy(z["tokens"][:, i:i + 1]),
-                "pos": int(z["pos0"]) + i})
+            batch = {"tokens": torch.from_numpy(z["tokens"][:, i:i + 1]),
+                     "pos": int(z["pos0"]) + i}
+            if i == 0:
+                orig = recording_group_calls(
+                    mesh.device_mesh.get_group("model"), {}, payloads)
+                try:
+                    lg, cache = b.fn(params, cache, batch)
+                finally:
+                    for n, f in orig.items():
+                        setattr(torch.distributed, n, f)
+            else:
+                lg, cache = b.fn(params, cache, batch)
             logits.append(host(lg))
+        checks.setdefault("decode_payloads", {})[key] = payloads
         checks["decode_shapes"][key] = {
             "logits": list(lg.to_local().shape),
             "cache": [list(l.to_local().shape) for l in _tree.leaves(cache)]}
@@ -548,17 +611,18 @@ def tp_scenario(out: Path, rank: int, checks: dict) -> None:
 
 
 def tp1_scenario(out: Path, rank: int, checks: dict) -> None:
-    """A group of one rank: the train step (qwen3-8b, granite-moe),
-    prefill and decode (qwen3-8b) through the tensor-parallel code (every
-    split whole, every collective a one-rank call) against the one-device
-    code from the same state: bit for bit."""
+    """A group of one rank: the train step (qwen3-8b, granite-moe and the
+    recurrent families), prefill and decode (qwen3-8b and the recurrent
+    families) through the tensor-parallel code (every split whole, every
+    collective a one-rank call) against the one-device code from the same
+    state: bit for bit."""
     names = ("data", "model")
     mcfg = MeshConfig((1, 1), names)
     mesh, one = make_mesh(mcfg, "cpu"), Mesh(names, (1, 1),
                                              torch.device("cpu"))
     tcfg = TrainConfig(**TRAIN)
     same = {}
-    for arch in ("qwen3-8b", MOE):
+    for arch in ("qwen3-8b", MOE) + RECURRENT:
         cfg = f32_smoke(arch)
         shape = ShapeConfig("t", MOE_SEQ, BATCH, "train")
         bundles = [bundle_for("train", cfg, shape, m, mcfg, tcfg)
@@ -577,32 +641,139 @@ def tp1_scenario(out: Path, rank: int, checks: dict) -> None:
             runs.append(_tree.leaves((host(p), host(o), ms)))
         same[f"train/{arch}"] = all(torch.equal(a, b)
                                     for a, b in zip(*runs))
-    cfg = f32_smoke("qwen3-8b")
-    model = build_model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(3))
-    rng = np.random.default_rng(4)
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (BATCH, MOE_SEQ)).astype(np.int32))
-    outs = [host(bundle_for("prefill", cfg, ShapeConfig(
-        "p", MOE_SEQ, BATCH, "prefill"), m, mcfg).fn(
-        params, {"tokens": prompts})) for m in (one, mesh)]
-    same["prefill"] = torch.equal(*outs)
-    runs = []
-    for m in (one, mesh):
-        b = bundle_for("decode", cfg, ShapeConfig("d", MOE_SEQ, BATCH,
-                                                  "decode"), m, mcfg)
-        cache, logits = model.init_cache(BATCH, MOE_SEQ), []
-        for pos in range(DECODE_STEPS):
-            lg, cache = b.fn(params, cache, {"tokens": prompts[:, pos:pos + 1],
-                                             "pos": pos})
-            logits.append(host(lg))
-        runs.append(logits + _tree.leaves(host(cache)))
-    same["decode"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    for arch in ("qwen3-8b",) + RECURRENT:
+        cfg = f32_smoke(arch)
+        model = build_model(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(3))
+        rng = np.random.default_rng(4)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (BATCH, MOE_SEQ)).astype(np.int32))
+        outs = [host(bundle_for("prefill", cfg, ShapeConfig(
+            "p", MOE_SEQ, BATCH, "prefill"), m, mcfg).fn(
+            params, {"tokens": prompts})) for m in (one, mesh)]
+        same[f"prefill/{arch}"] = torch.equal(*outs)
+        runs = []
+        for m in (one, mesh):
+            b = bundle_for("decode", cfg, ShapeConfig("d", MOE_SEQ, BATCH,
+                                                      "decode"), m, mcfg)
+            cache, logits = model.init_cache(BATCH, MOE_SEQ), []
+            for pos in range(DECODE_STEPS):
+                lg, cache = b.fn(params, cache, {
+                    "tokens": prompts[:, pos:pos + 1], "pos": pos})
+                logits.append(host(lg))
+            runs.append(logits + _tree.leaves(host(cache)))
+        same[f"decode/{arch}"] = all(torch.equal(a, b)
+                                     for a, b in zip(*runs))
     checks["same"] = same
 
 
+# -- the recurrent families over model ---------------------------------------
+
+RECURRENT = ("zamba2-1.2b", "xlstm-1.3b")
+# on (1, 4), variants whose heads do not divide over 4 (rule 1): xLSTM
+# with 2 heads, zamba2 with 2 SSM heads
+RULE_ONE = ("xlstm-1.3b@num_heads=2@num_kv_heads=2",
+            "zamba2-1.2b@ssm_head_dim=64")
+TPR_TRAIN = {(2, 2): RECURRENT, (1, 4): RECURRENT + RULE_ONE}
+TPR_DECODE = {shape: {f"{shape[0]}x{shape[1]}/{a}": (a, MOE_SEQ)
+                      for a in archs} for shape, archs in TPR_TRAIN.items()}
+LOOP_SEQS = (16, 32)  # prefill lengths whose model collectives are counted
+
+
+def loop_counts(mesh, mcfg, checks) -> None:
+    """Each recurrent arch's prefill at ``LOOP_SEQS`` positions, counting
+    the collectives over ``model``: the same count at every length means
+    none runs inside a loop over positions (the sLSTM's time loop)."""
+    group = mesh.device_mesh.get_group("model")
+    for arch in RECURRENT:
+        cfg = f32_smoke(arch)
+        params = build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(6))
+        counts = []
+        for seq in LOOP_SEQS:
+            b = bundle_for("prefill", cfg, ShapeConfig("p", seq, BATCH,
+                                                       "prefill"), mesh, mcfg)
+            tokens = torch.zeros((BATCH, seq), dtype=torch.int32)
+            calls = {}
+            orig = recording_group_calls(group, calls)
+            try:
+                b.fn(params, {"tokens": tokens})
+            finally:
+                for n, f in orig.items():
+                    setattr(torch.distributed, n, f)
+            counts.append(calls)
+        checks["loop_counts"][arch] = counts
+
+
+def waited(path: Path, timeout: float = 600.0) -> Path:
+    """``path``, once another process has written it."""
+    t0 = time.monotonic()
+    while not path.exists():
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"{path} was not written in {timeout} s")
+        time.sleep(0.2)
+    return path
+
+
+def tp_steps_from_reference(out: Path, arch: str, mesh, mcfg, key: str):
+    """Each of the train run's STEPS again from the reference's state
+    before it (the initial parameters and fresh moments for the first;
+    ``ref_state_*``, which the reference writes as its chained run goes,
+    for the rest); rank 0 saves each step's gathered result."""
+    name = key.replace("/", "_")
+    params = torch.load(out / f"params_{arch}.pt")
+    batches = np.load(out / f"batches_{arch}.npz")
+    treedef = _tree.flatten(params)[1]
+    n = len(_tree.leaves(params))
+    tcfg = TrainConfig(**TRAIN)
+    bundle = bundle_for("train", f32_smoke(arch),
+                        ShapeConfig("t", SEQ, BATCH, "train"), mesh, mcfg,
+                        tcfg)
+    results = []
+    for step in range(STEPS):
+        if step == 0:
+            p, o = params, adamw_init(params, tcfg)
+        else:
+            z = np.load(waited(out / f"ref_state_{name}_{step}.npz"))
+
+            def tree(t):
+                return _tree.unflatten(treedef, [torch.from_numpy(z[f"{t}{i}"])
+                                                 for i in range(n)])
+
+            p = tree("p")
+            o = OptState(torch.from_numpy(z["count"]), tree("m"), tree("v"))
+        batch = {k[len(f"{step}/"):]: torch.from_numpy(v) for k, v in
+                 batches.items() if k.startswith(f"{step}/")}
+        p2, o2, _ = bundle.fn(p, o, batch, step)
+        results.append(host((p2, o2)))
+    if torch.distributed.get_rank() == 0:
+        torch.save(results, out / f"tp_steps_{name}.pt")
+
+
+def tpr_scenario(out: Path, rank: int, checks: dict) -> None:
+    """The recurrent families over ``model`` (Zamba2's Mamba blocks by SSM
+    heads, xLSTM's mLSTM and sLSTM blocks): the train step on (2, 2) and
+    (1, 4) (there also the RULE_ONE variants), prefill on (2, 2), decode
+    on both, the collectives of prefill at two lengths."""
+    checks.update(split={}, prefill_shapes={}, decode_shapes={},
+                  loop_counts={}, shards_match_gathered=True)
+    for shape in ((2, 2), (1, 4)):
+        mcfg = MeshConfig(shape, ("data", "model"))
+        mesh = make_mesh(mcfg, "cpu")
+        for arch in TPR_TRAIN[shape]:
+            tp_train(out, arch, SEQ, mesh, mcfg, checks,
+                     f"{shape[0]}x{shape[1]}/{arch}")
+        if shape == (2, 2):
+            tp_prefill(out, mesh, mcfg, checks, rank, RECURRENT)
+            loop_counts(mesh, mcfg, checks)
+        tp_decode(out, mesh, mcfg, checks, rank, TPR_DECODE[shape])
+        for arch in TPR_TRAIN[shape]:
+            tp_steps_from_reference(out, arch, mesh, mcfg,
+                                    f"{shape[0]}x{shape[1]}/{arch}")
+
+
 SCENARIOS = {"pods": pods_scenario, "train": train_scenario,
-             "tp": tp_scenario, "tp1": tp1_scenario}
+             "tp": tp_scenario, "tp1": tp1_scenario, "tpr": tpr_scenario}
 
 
 def main(argv) -> int:
