@@ -57,7 +57,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, obs
 from repro_torch._device import resolve_device
 from repro_torch.core.message import PackedPayload, TensorPayload
 from repro_torch.core.serialization import (BaseSerializer, SERIALIZERS, WireData,
@@ -216,20 +216,25 @@ class Channel:
         return "|".join(s.signature() for s in self._order)
 
     # ------------------------------------------------------------------
-    def encode(self, payload, peer: Optional[str] = None, *,
-               _pre: Optional[Tuple] = None) -> Encoded:
-        """Run the stack forward: payload -> wire (+ itemised charges).
+    @obs.spanned("wire.encode")
+    def encode(self, payload, peer: Optional[str] = None) -> Encoded:
+        """Run the stack forward: payload -> wire (+ itemised charges)."""
+        return self._encode(payload, peer)
 
-        ``_pre`` is a precomputed ``(payload', info)`` for the payload
-        compress stage (``encode_many``'s fused dispatch); the charges,
-        provenance and wire are identical to computing it here."""
+    def _encode(self, payload, peer: Optional[str] = None, *,
+                _pre: Optional[Tuple] = None) -> Encoded:
+        """``encode``, where ``_pre`` is a precomputed ``(payload', info)``
+        for the payload compress stage (``encode_many``'s fused dispatch);
+        the charges, provenance and wire are identical to computing it
+        here."""
         charges: List[Tuple[str, float, int]] = []
         infos: List[dict] = []
         wire: Optional[WireData] = None
         chunks = None
         for stage in self._order:
             if isinstance(stage, WireCompressStage):
-                out, info = stage.compress(wire)
+                with obs.span("wire.bytecodec"):
+                    out, info = stage.compress(wire)
                 if info is not None:
                     charges.append((stage.name,
                                     stage.codec.enc_time(info["orig_nbytes"]),
@@ -241,14 +246,16 @@ class Channel:
                 if _pre is not None:
                     payload, info = _pre
                 else:
-                    payload, info = stage.compress(payload, peer)
+                    with obs.span("codec.compress"):
+                        payload, info = stage.compress(payload, peer)
                 if info is not None:
                     charges.append((stage.name,
                                     stage.codec.enc_time(orig_nbytes),
                                     payload.nbytes))
                     infos.append(info)
             elif isinstance(stage, SerializeStage):
-                wire = stage.serializer.serialize(payload)
+                with obs.span("wire.serialize"):
+                    wire = stage.serializer.serialize(payload)
                 charges.append((stage.name,
                                 stage.serializer.ser_time(wire.nbytes), 0))
                 infos.append({"stage": "serialize", "codec": wire.codec})
@@ -300,8 +307,10 @@ class Channel:
             if isinstance(leaf, torch.Tensor):
                 return leaf.to(dev)
             return torch.tensor(leaf, device=dev)  # wires may be read-only
-        return TensorPayload(_tree.map(on, payload.tree))
+        with obs.span("wire.place"):
+            return TensorPayload(_tree.map(on, payload.tree))
 
+    @obs.spanned("wire.decode")
     def decode(self, wire: WireData):
         """Invert the wire's recorded stages right-to-left. Wire-domain
         steps (wirecodec) transform the wire before the serialize step
@@ -315,15 +324,18 @@ class Channel:
                 continue  # reassembly is the transport's job (free here)
             if kind == "wirecodec":
                 codec = codec_for(info["codec"])
-                cur = codec.decompress_wire(cur, info)
+                with obs.span("wire.bytecodec"):
+                    cur = codec.decompress_wire(cur, info)
                 cost += codec.dec_time(info["orig_nbytes"])
             elif kind == "serialize":
-                payload = decode_wire(cur, self.serializer)
+                with obs.span("wire.deserialize"):
+                    payload = decode_wire(cur, self.serializer)
                 cost += self.serializer.deser_time(cur.nbytes)
             else:  # payload-domain compress
                 codec = codec_for(info["codec"])
-                payload = codec.decompress(payload, info,
-                                           device=self._device_for(payload))
+                with obs.span("codec.decompress"):
+                    payload = codec.decompress(
+                        payload, info, device=self._device_for(payload))
                 cost += codec.dec_time(info["orig_nbytes"])
         return self._place(payload), cost
 
@@ -335,6 +347,7 @@ class Channel:
         for ``encode_many``."""
         return encode_many([(self, p, peer) for p, peer in items])
 
+    @obs.spanned("wire.decode")
     def decode_batch(self, wires: List[WireData]
                      ) -> List[Tuple[object, float]]:
         """Batched ``decode``: the per-wire wirecodec + deserialize steps
@@ -356,10 +369,12 @@ class Channel:
                     continue
                 if kind == "wirecodec":
                     codec = codec_for(info["codec"])
-                    cur = codec.decompress_wire(cur, info)
+                    with obs.span("wire.bytecodec"):
+                        cur = codec.decompress_wire(cur, info)
                     cost += codec.dec_time(info["orig_nbytes"])
                 elif kind == "serialize":
-                    payload = decode_wire(cur, self.serializer)
+                    with obs.span("wire.deserialize"):
+                        payload = decode_wire(cur, self.serializer)
                     cost += self.serializer.deser_time(cur.nbytes)
                 else:  # payload-domain: defer for the fused dispatch
                     payload_infos.append(info)
@@ -374,14 +389,15 @@ class Channel:
         for name, members in tail.items():
             codec = codec_for(name)
             payloads = [p for _, p, _ in members]
-            decoded = codec.decode_batch(
-                payloads, [infos[0] for _, _, infos in members],
-                device=self._device_for(*payloads))
-            for (idx, _, infos), payload in zip(members, decoded):
-                for info in infos[1:]:
-                    payload = codec_for(info["codec"]).decompress(
-                        payload, info, device=self._device_for(payload))
-                results[idx] = (payload, results[idx][1])
+            with obs.span("codec.decompress"):
+                decoded = codec.decode_batch(
+                    payloads, [infos[0] for _, _, infos in members],
+                    device=self._device_for(*payloads))
+                for (idx, _, infos), payload in zip(members, decoded):
+                    for info in infos[1:]:
+                        payload = codec_for(info["codec"]).decompress(
+                            payload, info, device=self._device_for(payload))
+                    results[idx] = (payload, results[idx][1])
         return [(self._place(p), cost) for p, cost in results]
 
     def decode_time(self, wire: WireData) -> float:
@@ -402,6 +418,7 @@ class Channel:
         return cost
 
 
+@obs.spanned("wire.encode")
 def encode_many(items: List[Tuple[Channel, object, Optional[str]]]
                 ) -> List[Encoded]:
     """Encode a batch of (channel, payload, peer) triples — possibly
@@ -413,7 +430,7 @@ def encode_many(items: List[Tuple[Channel, object, Optional[str]]]
     item by item, by construction: states are resolved through the same
     ``CompressStage.resolve_state`` rule before the fused dispatch and
     written back through ``store_state`` after it, and the rest of each
-    stack runs unchanged via ``encode(..., _pre=...)``. Items whose
+    stack runs unchanged via ``Channel._encode(..., _pre=...)``. Items whose
     (stage, peer) stream appears more than once in the batch are left on
     the sequential path — their residuals chain, so fusing them would
     reorder the feedback loop."""
@@ -436,11 +453,12 @@ def encode_many(items: List[Tuple[Channel, object, Optional[str]]]
         payloads = [items[i][1] for i, _, _ in members]
         states = [stage.resolve_state(p, peer)
                   for (_, stage, peer), p in zip(members, payloads)]
-        for (i, stage, peer), (out, new_state, info) in zip(
-                members, codec.encode_batch(payloads, states)):
+        with obs.span("codec.compress"):
+            encoded = codec.encode_batch(payloads, states)
+        for (i, stage, peer), (out, new_state, info) in zip(members, encoded):
             stage.store_state(peer, new_state)
             pre[i] = (out, info)
-    return [ch.encode(payload, peer, _pre=pre[idx])
+    return [ch._encode(payload, peer, _pre=pre[idx])
             for idx, (ch, payload, peer) in enumerate(items)]
 
 

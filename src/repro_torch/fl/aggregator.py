@@ -25,13 +25,14 @@ from typing import Sequence
 
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, obs
 from repro_torch._device import synchronize
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize import div_ftz, mul_ftz
 from repro_torch.kernels.quantize import flush_subnormals as _flush
 
 
+@obs.spanned("round.aggregate")
 def fedavg(updates: Sequence, weights):
     """updates: list of trees; weights ~ num_examples per client.
     Returns (aggregate tree, measured seconds)."""
@@ -41,6 +42,7 @@ def fedavg(updates: Sequence, weights):
     return agg, time.perf_counter() - t0
 
 
+@obs.spanned("round.aggregate")
 def fedavg_quantized(packed_list: Sequence[dict], weights, unflatten, *,
                      device=None):
     """packed_list: qsgd-packed updates (``ops.quantize_flat_batch``
@@ -74,6 +76,7 @@ class StreamingAccumulator:
         self.count = 0  # client updates folded (records' ``count`` sum)
         self.agg_s = 0.0  # accumulated fold compute seconds
 
+    @obs.spanned("round.aggregate")
     def fold(self, rec, alpha: float):
         """rec: scheduler UpdateRecord; alpha: its staleness discount."""
         from repro_torch.core.message import TensorPayload
@@ -93,6 +96,7 @@ class StreamingAccumulator:
             synchronize(self.acc)
             self.agg_s += time.perf_counter() - t0
 
+    @obs.spanned("round.aggregate")
     def merged(self):
         """-> (merged tree | None, measured agg seconds)."""
         if self.acc is None or self.sum_eff <= 0:
@@ -127,6 +131,7 @@ def staleness_weight(staleness: float, exponent: float = 0.5) -> float:
     return (1.0 + max(float(staleness), 0.0)) ** (-exponent)
 
 
+@obs.spanned("round.aggregate")
 def merge_global(global_tree, merged_tree, lam: float):
     """Damped server update: ``(1 - lam) * global + lam * merged``.
 

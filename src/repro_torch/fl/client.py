@@ -21,7 +21,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, obs
 from repro_torch._device import resolve_device, synchronize
 from repro_torch.core.message import FLMessage, TensorPayload, VirtualPayload
 
@@ -72,6 +72,7 @@ class FLClient:
         # object store's content-addressed cache (each round re-uploads)
 
     # ------------------------------------------------------------------
+    @obs.spanned("client.local_train")
     def local_train(self, params, local_steps: int):
         """Live local training. Returns (new_params, mean_loss, seconds)."""
         t0 = time.perf_counter()
@@ -82,9 +83,14 @@ class FLClient:
         it = self.dataset.batches(self.batch_size, seed=self.seed + self._round)
         losses = []
         for _ in range(local_steps):
-            batch = {k: _on(v, dev) for k, v in next(it).items()}
-            params, loss = self.train_fn(params, batch)
-            losses.append(float(loss))
+            with obs.span("client.input.draw"):
+                host_batch = next(it)
+            with obs.span("client.input.h2d"):
+                batch = {k: _on(v, dev) for k, v in host_batch.items()}
+            with obs.span("client.step"):
+                params, loss = self.train_fn(params, batch)
+            with obs.span("client.loss_read"):
+                losses.append(float(loss))
         # the work is queued on the device: wait for it before the clock
         # is read, as the measured seconds enter the simulated round
         synchronize(_tree.leaves(params)[0])

@@ -34,6 +34,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.message import FLMessage, TensorPayload, VirtualPayload
 from repro_torch.fl.aggregator import (fedavg, merge_global,
                                        simulated_agg_time, staleness_weight)
@@ -215,7 +216,8 @@ class EventLoop:
                 heapq.heappop(self._q)
                 self.now = t
                 self.trace.append((round(t, 9), name))
-                fn(t, **kw)
+                with obs.span("runtime.event"):
+                    fn(t, **kw)
             return self.now
         while not self.stopped:
             head = self._q.peek()
@@ -224,7 +226,8 @@ class EventLoop:
             t, _, name, fn, kw = self._q.pop()
             self.now = t
             self.trace.append((round(t, 9), name))
-            fn(t, **kw)
+            with obs.span("runtime.event"):
+                fn(t, **kw)
         return self.now
 
 
@@ -573,6 +576,7 @@ class FLScheduler:
         records = list(records)
         if self.finished or not records:
             return now
+        obs.count("round.aggregations")
         alphas = [self.strategy.staleness_weight(r.staleness)
                   for r in records]
         eff = [r.weight * a for r, a in zip(records, alphas)]

@@ -17,6 +17,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.backends.base import CommBackend
 from repro_torch.core.message import (FLMessage, TensorPayload, VirtualPayload)
 from repro_torch.core.netsim import Region, Transfer, simulate_transfers
@@ -159,10 +160,12 @@ class FLServer:
         return out
 
     # ------------------------------------------------------------------
+    @obs.spanned("round.sync")
     def run_round(self, global_payload, *, dropped: Optional[set] = None,
                   participants: Optional[Sequence[FLClient]] = None):
         """One FL round. ``global_payload``: TensorPayload | VirtualPayload.
         Returns RoundReport (and updates self.global_params in live mode)."""
+        obs.count("round.aggregations")
         dropped = dropped or set()
         clients = list(participants or self.clients)
         t0 = self.now

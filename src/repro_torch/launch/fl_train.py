@@ -32,7 +32,7 @@ import dataclasses
 
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, obs
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import FLConfig
 from repro_torch.configs.paper_tiers import TIERS, build_tier_model
@@ -58,9 +58,11 @@ def make_train_fn(model):
     def train_fn(params, batch):
         leaves, treedef = _tree.flatten(params)
         leaves = [l.detach().requires_grad_(True) for l in leaves]
-        loss, _ = model.loss(_tree.unflatten(treedef, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
+        with obs.span("client.step.forward"):
+            loss, _ = model.loss(_tree.unflatten(treedef, leaves), batch)
+        with obs.span("client.step.backward"):
+            grads = torch.autograd.grad(loss, leaves)
+        with obs.span("client.step.update"), torch.no_grad():
             new = [p - LEARNING_RATE * g for p, g in zip(leaves, grads)]
         return _tree.unflatten(treedef, new), loss.detach()
     return train_fn
