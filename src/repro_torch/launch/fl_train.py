@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import warnings
 
 import torch
 
@@ -42,6 +44,7 @@ from repro_torch.data import make_silo_datasets
 from repro_torch.fl import FLClient, FLServer, make_strategy
 from repro_torch.fl.fault import (FaultPlan, apply_stragglers,
                                   make_availability)
+from repro_torch.launch import train_graph
 from repro_torch.scenario import (TOPOLOGY_PRESETS, Scenario, ScenarioError,
                                   build_runtime, with_overrides)
 
@@ -54,9 +57,14 @@ _BIG_LIVE = ("tier 'big' (DistilBERT) cannot train in a live round: the "
 
 def make_train_fn(model):
     """One SGD step: autograd over the tree's leaves, then
-    ``p - lr * g``. Returns (new_params, loss tensor)."""
-    def train_fn(params, batch):
-        leaves, treedef = _tree.flatten(params)
+    ``p - lr * g``. Returns (new_params, loss tensor).
+
+    On a CUDA card each input signature (``train_graph.signature``) is
+    captured once into a CUDA graph and replayed after that
+    (``train_graph.GraphedStep``); the returned tree is fresh memory each
+    call. Elsewhere, or where a signature's capture fails (warned once),
+    the step runs eagerly."""
+    def step(treedef, leaves, batch):
         leaves = [l.detach().requires_grad_(True) for l in leaves]
         with obs.span("client.step.forward"):
             loss, _ = model.loss(_tree.unflatten(treedef, leaves), batch)
@@ -64,7 +72,33 @@ def make_train_fn(model):
             grads = torch.autograd.grad(loss, leaves)
         with obs.span("client.step.update"), torch.no_grad():
             new = [p - LEARNING_RATE * g for p, g in zip(leaves, grads)]
-        return _tree.unflatten(treedef, new), loss.detach()
+        return new, loss.detach()
+
+    graphs = {}  # signature -> GraphedStep, or None where capture failed
+
+    def capture(key, treedef, leaves, batch):
+        try:
+            graphs[key] = train_graph.GraphedStep(
+                functools.partial(step, treedef), leaves, batch)
+            return graphs[key].capture(leaves, batch)
+        except (RuntimeError, ValueError) as e:
+            warnings.warn(f"make_train_fn: this step's CUDA graph capture "
+                          f"failed ({e}); it runs eagerly", RuntimeWarning,
+                          stacklevel=3)
+            graphs[key] = None
+            return step(treedef, leaves, batch)
+
+    def train_fn(params, batch):
+        leaves, treedef = _tree.flatten(params)
+        key = (train_graph.signature(treedef, leaves, batch)
+               if leaves[0].is_cuda else None)
+        if key is not None and key not in graphs:
+            new, loss = capture(key, treedef, leaves, batch)
+        elif graphs.get(key) is not None:
+            new, loss = graphs[key](leaves, batch)
+        else:
+            new, loss = step(treedef, leaves, batch)
+        return _tree.unflatten(treedef, new), loss
     return train_fn
 
 
