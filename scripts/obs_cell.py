@@ -1,5 +1,5 @@
 """Run one cell of the benchmark with the program's own tracer
-(``repro_torch/obs.py``) on over a traced run's window, and the three
+(``repro_torch/obs.py``) on over a traced run's window, and the four
 program metrics among the cell's per-layer ones:
 
     python3 scripts/obs_cell.py --workload <name> --seed <n> \
@@ -12,7 +12,7 @@ and the probe's spans restart, ``obs.snapshot()`` and ``obs.disable()``
 when the window closes; the run's view then carries the snapshot
 (``program``) and ``fl_bench/progtrace.py``'s reduction of the profiled
 part (``program_trace``), which ``fl_bench/metrics/launches_per_step.py``,
-``h2d_ms.py`` and ``runtime_ms.py`` read. Standard error gets one line
+``h2d_ms.py``, ``runtime_ms.py`` and ``wire_gbps.py`` read. Standard error gets one line
 with the card's idle gaps by program span, the host-to-device copies by
 span and the snapshot.
 """
@@ -32,6 +32,8 @@ METRICS = [
      "source": "device_trace", "layer": "client input", "moves": "round_s"},
     {"name": "runtime_ms", "unit": "ms", "better": "lower",
      "source": "program_span", "layer": "round", "moves": "round_s"},
+    {"name": "wire_gbps", "unit": "GB/s", "better": "higher",
+     "source": "program_span", "layer": "wire", "moves": "round_s"},
 ]
 
 
@@ -82,7 +84,7 @@ def hooks():
 
 
 def with_metrics(cell):
-    """The cell with the three program metrics among its per-layer
+    """The cell with the four program metrics among its per-layer
     ones."""
     from fl_bench.cell import load_reader
     for m in METRICS:
@@ -93,7 +95,7 @@ def with_metrics(cell):
 
 
 def main(argv=None) -> int:
-    """``fl_bench/run.py``'s main, whose cell gains the three metrics and
+    """``fl_bench/run.py``'s main, whose cell gains the four metrics and
     whose harness runs inside the hooks."""
     sys.path.insert(0, str(ROOT))
     from fl_bench import cell as cells

@@ -175,5 +175,9 @@ class AutoBackend:
     def next_arrival(self, after: float = float("-inf")):
         return self.grpc.next_arrival(after)  # shared endpoint
 
+    def retire(self):
+        if self.s3 is not None:
+            self.s3.retire()
+
     def p2p_time(self, nbytes, dst_id):
         return self._pick(self._wire_nbytes(nbytes)).p2p_time(nbytes, dst_id)

@@ -20,6 +20,13 @@ Properties reproduced here (paper §III-B):
   GETs retry with backoff on injected faults.
 * Security     — metadata leg inherits gRPC TLS; S3 leg uses presigned,
   time-limited scoped URLs (``ObjectStore.presign``).
+
+The stored wires' lifecycle (``ObjectStore.hold``/``drop``): an ``isend``
+holds its object for the receiver until the receiver has decoded it; a
+sender holds the newest model it served (a ``model_sync``) until it
+serves a newer one or ``retire``s it, since a late or re-dispatched
+receiver may be sent it again. A cache hit on a released object encodes
+its wire anew.
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ class GrpcS3Backend(CommBackend):
         self.parts = parts
         self.presign = presign
         self._key_cache: dict = {}  # fingerprint -> (s3 key, upload done t)
+        self._published = None  # key of the newest model this sender served
         self.meta_serializer = SERIALIZERS["protobuf"]  # control channel
 
     # -- helpers ---------------------------------------------------------
@@ -73,6 +81,7 @@ class GrpcS3Backend(CommBackend):
         if fp in self._key_cache and self.store.has(self._key_cache[fp][0]):
             key, done = self._key_cache[fp]
             self.store.note_cache_hit()
+            self._revive(key, msg)
             # the cached upload may still be in flight (concurrent isends
             # of the same model): readers wait for it to land
             return key, max(now, done)
@@ -89,6 +98,7 @@ class GrpcS3Backend(CommBackend):
                 self.fabric.account(0.0, messages=0, cross_job_hits=1,
                                     job=self.job_name)
             self._key_cache[fp] = (key, done)
+            self._revive(key, msg)
             return key, max(now, done)
         # one shared compression stream for the store (a single object
         # serves every receiver), hence peer="s3"
@@ -107,6 +117,30 @@ class GrpcS3Backend(CommBackend):
         mem.free(alloc, done)
         self._key_cache[fp] = (key, done)
         return key, done
+
+    def _revive(self, key: str, msg: FLMessage) -> None:
+        """A cache hit on an object whose wire the store released: this
+        sender holds the same content, so it encodes the wire again."""
+        if self.store.released(key):
+            self.store.revive(key, self.channel.encode(msg.payload,
+                                                       peer="s3").wire)
+
+    def _publish(self, msg: FLMessage, key: str) -> None:
+        """Hold the newest model this sender served; the one before it is
+        superseded."""
+        if msg.msg_type != "model_sync" or key == self._published:
+            return
+        self.store.hold(key)
+        old, self._published = self._published, key
+        if old is not None:
+            self.store.drop(old)
+
+    def retire(self) -> None:
+        """The newest model this sender served will not be sent again (the
+        round that served it has closed)."""
+        if self._published is not None:
+            old, self._published = self._published, None
+            self.store.drop(old)
 
     def has_cached_upload(self, msg: FLMessage) -> bool:
         """Would sending this payload re-serve the stored object (no
@@ -135,6 +169,7 @@ class GrpcS3Backend(CommBackend):
         if msg.payload is None:
             return super().isend(msg, now)
         key, up_done = self._upload(msg, now)
+        self._publish(msg, key)
         meta = self._meta_msg(msg, key)
         edge = self._edge(msg.receiver)
         region = edge.region
@@ -145,10 +180,12 @@ class GrpcS3Backend(CommBackend):
         fin, give_up = self._link_schedule(msg.receiver, up_done, 256,
                                            region.bw_single, edge, None, 0)
         if fin is None:
+            self.store.settle(key)  # no receiver will read this send
             # start = the give-up time (when the sender learns of the loss)
             return SendHandle(msg=msg, issued=now, start=give_up,
                               inbox_t=float("inf"), arrive=float("inf"),
                               nbytes=self.store.size(key), failed=True)
+        self.store.hold(key)  # until the receiver has decoded it
         arrive_meta = self.fabric.deliver(
             meta, WireData(nbytes=256), up_done,
             self._overhead(region) + region.latency + fin - up_done,
@@ -170,6 +207,7 @@ class GrpcS3Backend(CommBackend):
         """Single upload + N concurrent multipart downloads."""
         assert all(m.payload is not None for m in msgs)
         key, up_done = self._upload(msgs[0], now)
+        self._publish(msgs[0], key)
         arrives = []
         transfers = []
         metas = []
@@ -208,6 +246,8 @@ class GrpcS3Backend(CommBackend):
             # bypasses Fabric.deliver, so count the wire bytes here
             self.fabric.account(obj.nbytes, job=self.job_name)
             arrives.append(tr.finish + d_t)
+        # the receivers' inboxes hold the wire until they decode it
+        self.store.settle(key)
         return up_done, arrives
 
     def recv(self, now: float) -> List[Tuple[FLMessage, float]]:
@@ -217,7 +257,8 @@ class GrpcS3Backend(CommBackend):
             if "s3_key" in msg.metadata and (d.wire is None or
                                              d.wire.nbytes <= 256):
                 # metadata record: pull the object (independent connections)
-                obj, attempts = self.store.get(msg.metadata["s3_key"])
+                key = msg.metadata["s3_key"]
+                obj, attempts = self.store.get(key)
                 dst = self.env.host(self.host_id)
                 ready += attempts * self.store.get_time(obj.nbytes, dst,
                                                         self.parts)
@@ -229,6 +270,10 @@ class GrpcS3Backend(CommBackend):
                     payload, dec_s = self.channel.decode(obj.wire)
                     ready += dec_s
                     msg = dataclasses.replace(msg, payload=payload)
+                elif self.store.released(key):
+                    raise RuntimeError(f"s3: the wire of {key} was released "
+                                       "before this receiver read it")
+                self.store.drop(key)
             elif d.wire is not None and d.wire.nbytes > 256:
                 payload, dec_s = self.channel.decode(d.wire)
                 ready += dec_s

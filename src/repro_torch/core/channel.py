@@ -256,6 +256,7 @@ class Channel:
             elif isinstance(stage, SerializeStage):
                 with obs.span("wire.serialize"):
                     wire = stage.serializer.serialize(payload)
+                obs.count("wire.bytes", wire.nbytes)
                 charges.append((stage.name,
                                 stage.serializer.ser_time(wire.nbytes), 0))
                 infos.append({"stage": "serialize", "codec": wire.codec})
@@ -330,6 +331,7 @@ class Channel:
             elif kind == "serialize":
                 with obs.span("wire.deserialize"):
                     payload = decode_wire(cur, self.serializer)
+                obs.count("wire.bytes", cur.nbytes)
                 cost += self.serializer.deser_time(cur.nbytes)
             else:  # payload-domain compress
                 codec = codec_for(info["codec"])
@@ -375,6 +377,7 @@ class Channel:
                 elif kind == "serialize":
                     with obs.span("wire.deserialize"):
                         payload = decode_wire(cur, self.serializer)
+                    obs.count("wire.bytes", cur.nbytes)
                     cost += self.serializer.deser_time(cur.nbytes)
                 else:  # payload-domain: defer for the fused dispatch
                     payload_infos.append(info)

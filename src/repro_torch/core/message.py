@@ -14,6 +14,7 @@ Payload flavours:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
 from typing import Any, Optional
 
@@ -35,6 +36,70 @@ def tree_nbytes(tree) -> int:
     return sum(leaf_nbytes(l) for l in _tree.leaves(tree))
 
 
+# A payload's content digest: the sum mod 2**64, over every 32-bit word of
+# its leaves' bytes, of splitmix64's finaliser applied to (position << 32 |
+# word). The finaliser is a bijection, so each word at each position adds
+# its own pseudo-random 64-bit value: two payloads whose bytes differ
+# anywhere share a digest with odds of about 2**-64, where a key of a few
+# sampled elements collides whenever they agree. The sum runs where the
+# leaves live, a pass of WORDS_PER_PASS words at a time, and one integer
+# crosses to the host.
+WORDS_PER_PASS = 1 << 24
+_GOLDEN, _M1, _M2 = (c - (1 << 64) for c in (  # as the int64 of their bits
+    0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB))
+
+
+def _shr(z, s: int):
+    """Logical right shift of int64 bits (``>>`` is arithmetic)."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix(z):
+    """splitmix64's finaliser, with int64 arithmetic wrapping mod 2**64."""
+    z = (z ^ _shr(z, 30)) * _M1
+    z = (z ^ _shr(z, 27)) * _M2
+    return z ^ _shr(z, 31)
+
+
+def _words(leaf) -> torch.Tensor:
+    """A leaf's bytes as int32 words, zero-padded to a whole word."""
+    if isinstance(leaf, torch.Tensor):
+        b = leaf.detach().contiguous().reshape(-1).view(torch.uint8)
+    else:
+        a = np.ascontiguousarray(leaf).reshape(-1).view(np.uint8)
+        b = torch.from_numpy(a if a.flags.writeable else a.copy())
+    if b.numel() % 4:
+        b = torch.cat([b, b.new_zeros(4 - b.numel() % 4)])
+    return b.view(torch.int32)
+
+
+def _layout(leaf) -> tuple:
+    """(shape, dtype name), a host array's as a tensor's."""
+    if isinstance(leaf, torch.Tensor):
+        return tuple(leaf.shape), str(leaf.dtype).removeprefix("torch.")
+    a = np.asarray(leaf)
+    return a.shape, str(a.dtype)
+
+
+def content_digest(leaves) -> int:
+    """A 64-bit identity of ``leaves``' contents, shapes and dtypes: equal
+    for equal contents, a host array's as a tensor's."""
+    if not leaves:
+        return 0
+    words = [_words(l) for l in leaves]
+    dev = words[0].device
+    flat = torch.cat([w.to(dev) for w in words])
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for start in range(0, flat.numel(), WORDS_PER_PASS):
+        w = flat[start:start + WORDS_PER_PASS].to(torch.int64) & 0xFFFFFFFF
+        pos = torch.arange(start, start + w.numel(), dtype=torch.int64,
+                           device=dev)
+        total += _mix(((pos << 32) | w) + _GOLDEN).sum()
+    meta = [_layout(l) for l in leaves]
+    h = hashlib.blake2b(repr((int(total), meta)).encode(), digest_size=8)
+    return int.from_bytes(h.digest(), "little")
+
+
 @dataclasses.dataclass
 class TensorPayload:
     tree: Any
@@ -44,17 +109,7 @@ class TensorPayload:
         return tree_nbytes(self.tree)
 
     def fingerprint(self) -> int:
-        leaves = _tree.leaves(self.tree)
-        if not leaves:
-            return 0
-        first = leaves[0]
-        if isinstance(first, torch.Tensor):
-            # one element crosses to the host, never the whole leaf
-            head = float(first.reshape(-1)[0]) if first.numel() else 0.0
-        else:
-            first = np.asarray(first).reshape(-1)
-            head = float(first[0]) if first.size else 0.0
-        return hash((len(leaves), self.nbytes, head))
+        return content_digest(_tree.leaves(self.tree))
 
 
 @dataclasses.dataclass
@@ -72,8 +127,7 @@ class PackedPayload:
             int(np.size(self.packed["scales"])) * 4
 
     def fingerprint(self) -> int:
-        orig = self.packed.get("orig_len", self.packed.get("n", 0))
-        return hash(("packed", self.nbytes, int(orig)))
+        return content_digest(_tree.leaves(self.packed))
 
 
 @dataclasses.dataclass

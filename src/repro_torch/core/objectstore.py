@@ -8,6 +8,16 @@ retries.
 Functionally real (bytes stored in memory / spillable to disk); timing is
 charged through netsim: each connection sustains ``S3_CONN_BW``; a client
 fetching with N parts gets min(N * S3_CONN_BW, its region multi-conn BW).
+
+Object lifecycle (the port's own): a stored wire is host memory of this
+process, so the store drops it once nothing can read it again. Readers
+and senders ``hold`` a key (a receiver a send was addressed to, until it
+has decoded the object; a sender, while it may serve the object again)
+and ``drop`` it; the last drop ``release``s the wire. The object and its
+metadata stay (``has``, ``size``, ``get``, the content index and every
+simulated time read them as before), and a sender that serves a released
+object again ``revive``s it with the wire it encodes anew: the simulated
+bucket never lost it, so that costs no simulated time and no ``stats``.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ import secrets
 import time
 from typing import Any, Dict, Optional
 
+from repro_torch import obs
 from repro_torch.core.netsim import MB, Host, Region, Transfer
 from repro_torch.core.serialization import WireData
 
@@ -67,6 +78,8 @@ class ObjectStore:
         # WITHOUT a job namespace on purpose — two tenants shipping the
         # same base model through the same wire stack share one PUT
         self._content_index: Dict[Any, tuple] = {}
+        self._holds: Dict[str, int] = {}  # key -> readers and senders
+        self._released: set = set()  # keys whose wire was dropped
 
     # -- content-addressed keys ----------------------------------------
     @staticmethod
@@ -118,7 +131,11 @@ class ObjectStore:
         etag = hashlib.sha1(f"{key}:{nbytes}".encode()).hexdigest()[:12]
         obj = S3Object(key=key, nbytes=nbytes, wire=wire, etag=etag,
                        created=now, version=next(self._versions))
+        self.release(key)  # an overwritten object's wire
         self._objects[key] = obj
+        self._released.discard(key)
+        if wire is not None:
+            obs.count("store.bytes_put", wire.nbytes)
         return obj
 
     def get(self, key: str, *, max_retries: int = 3):
@@ -135,13 +152,57 @@ class ObjectStore:
         return obj, attempts
 
     def delete(self, key: str):
+        self.release(key)
         self._objects.pop(key, None)
+        self._holds.pop(key, None)
+        self._released.discard(key)
 
     def gc(self, now: float, ttl: float):
         dead = [k for k, o in self._objects.items() if now - o.created > ttl]
         for k in dead:
-            del self._objects[k]
+            self.delete(k)
         return len(dead)
+
+    # -- object lifecycle ------------------------------------------------
+    def hold(self, key: str) -> None:
+        """One more reader or sender needs ``key``'s wire."""
+        self._holds[key] = self._holds.get(key, 0) + 1
+
+    def drop(self, key: str) -> None:
+        """A holder is done with ``key``; the last one releases it."""
+        left = self._holds.get(key, 0) - 1
+        if left > 0:
+            self._holds[key] = left
+        else:
+            self._holds.pop(key, None)
+            self.release(key)
+
+    def settle(self, key: str) -> None:
+        """Release ``key``'s wire if nothing holds it."""
+        if not self._holds.get(key):
+            self.release(key)
+
+    def release(self, key: str) -> None:
+        """Drop ``key``'s wire, keep the object and its metadata."""
+        obj = self._objects.get(key)
+        if obj is None or obj.wire is None:
+            return
+        with obs.span("store.release"):
+            nbytes, obj.wire = obj.wire.nbytes, None
+            self._released.add(key)
+        obs.count("store.objects_released")
+        obs.count("store.bytes_released", nbytes)
+
+    def released(self, key: str) -> bool:
+        """Whether ``key``'s wire was dropped (not a virtual payload's)."""
+        return key in self._released
+
+    def revive(self, key: str, wire: WireData) -> None:
+        """Attach a released object's wire again, encoded anew from the
+        same content."""
+        self._objects[key].wire = wire
+        self._released.discard(key)
+        obs.count("store.bytes_put", wire.nbytes)
 
     def presign(self, key: str, mode: str, now: float,
                 ttl: float = 3600.0) -> PresignedURL:

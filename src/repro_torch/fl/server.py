@@ -127,6 +127,8 @@ class FLServer:
             for (client, msg, ser, key, wire), tr in zip(meta, transfers):
                 deser = (s3.channel.decode_time(wire) if wire is not None
                          else s3.serializer.deser_time(msg.payload_nbytes))
+                # the server takes the update in process: no reader comes
+                s3.store.settle(key)
                 out[client.client_id] = (tr.finish + deser, ser, msg, key)
                 s3.fabric.account(tr.nbytes)
             return out
@@ -253,6 +255,11 @@ class FLServer:
         if self.ckpt is not None and self.global_params is not None:
             self.ckpt.save(self.round, self.global_params,
                            meta={"sim_time": self.now})
+        # every client has received this round's model: the store may
+        # release it (a next round's identical model is encoded anew)
+        retire = getattr(self.backend, "retire", None)
+        if retire is not None:
+            retire()
         return report
 
     # ------------------------------------------------------------------

@@ -21,6 +21,7 @@ from repro_torch.compression import stages
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import TensorPayload
 from repro_torch.core import channel as channel_mod
+from repro_torch.core import serialization
 from repro_torch.fl import make_strategy
 from repro_torch.fl import scheduler as sched_mod
 from repro_torch.fl import server as server_mod
@@ -80,13 +81,22 @@ def _run(case, traced):
     held = {}
     cfg, server, params = _deploy(case, held)
     Q = stages.QsgdCodec
+    S = serialization.BaseSerializer
     saved = (server_mod.fedavg, sched_mod.fedavg, channel_mod.decode_wire,
-             Q._compress_tree, Q._compress_flats)
+             Q._compress_tree, Q._compress_flats, S.serialize)
 
     def fedavg(trees, weights):
         return saved[0](trees, weights)[0], 0.0
+
+    def serialize(ser, payload):
+        wire = saved[5](ser, payload)
+        held["wire_bytes"] = held.get("wire_bytes", 0) + wire.nbytes
+        return wire
     server_mod.fedavg = sched_mod.fedavg = fedavg
-    channel_mod.decode_wire = _counting(saved[2], held, "decoded")
+    S.serialize = serialize
+    channel_mod.decode_wire = _counting(
+        _counting(saved[2], held, "decoded"), held, "wire_bytes",
+        lambda wire, fallback: wire.nbytes)
     Q._compress_tree = _counting(saved[3], held, "compressed")
     Q._compress_flats = _counting(saved[4], held, "compressed",
                                   lambda codec, flats, states: len(flats))
@@ -109,7 +119,7 @@ def _run(case, traced):
     finally:
         obs.disable()
         (server_mod.fedavg, sched_mod.fedavg, channel_mod.decode_wire,
-         Q._compress_tree, Q._compress_flats) = saved
+         Q._compress_tree, Q._compress_flats, S.serialize) = saved
     model = [l.numpy().tobytes() for l in _tree.leaves(server.global_params)]
     return snap, held, model
 
@@ -141,7 +151,12 @@ def test_counts_match_the_schedule(case):
         assert spans[name]["n"] == steps, name
     assert counters["round.aggregations"] == held["aggregations"] \
         == AGGREGATIONS
-    assert set(counters) == {"round.aggregations"}
+    # the wire's bytes, both ways; the object store's only on gRPC+S3
+    assert counters["wire.bytes"] == held["wire_bytes"] > 0
+    store = {"store.bytes_put", "store.bytes_released",
+             "store.objects_released"}
+    assert set(counters) == {"round.aggregations", "wire.bytes"} | (
+        store if CASES[case]["backend"] == "grpc+s3" else set())
     assert spans["wire.deserialize"]["n"] == held["decoded"] > 0
     assert spans["wire.decode"]["n"] >= spans["wire.place"]["n"] > 0
     for name, s in spans.items():

@@ -75,9 +75,20 @@ def test_generic_wires_equal_buffers(name, rng):
 
 
 def test_payload_accounting_matches(rng):
+    """Equal sizes. The reference keys a payload by its leaves, bytes and
+    first element; the port by a digest of every byte, so two trees that
+    agree there and differ elsewhere share the reference's key and not
+    the port's, and equal trees share both."""
     jtree, ttree = _trees(rng)
     assert TensorPayload(ttree).nbytes == JPayload(jtree).nbytes
-    assert TensorPayload(ttree).fingerprint() == JPayload(jtree).fingerprint()
+    other = _tree.map(lambda t: t.clone(), ttree)
+    assert TensorPayload(other).fingerprint() == \
+        TensorPayload(ttree).fingerprint()
+    other["head"]["w"][-1, -1] += 1
+    jother = jax.tree.map(lambda t: jnp.asarray(t.numpy()), other)
+    assert JPayload(jother).fingerprint() == JPayload(jtree).fingerprint()
+    assert TensorPayload(other).fingerprint() != \
+        TensorPayload(ttree).fingerprint()
 
 
 def _transfers(net, env, rng, n):
